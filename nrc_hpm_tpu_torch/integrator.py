@@ -1,0 +1,190 @@
+"""Volumetric path tracing: direct lighting and the bounce loop.
+
+Port of ``nrc_hpm_tpu/integrator.py`` for the piecewise (``pw``) trackers.
+``trace_scene`` is single-scatter direct lighting from the directional
+light, the point light and one phase-weighted environment sample, with
+all shadow segments concatenated into ONE ratio-tracking call: segment k
+starts from the k-times-advanced RNG state, and the environment direction
+is drawn before tracking, exactly as the JAX package's batched path.
+
+``trace_path`` runs each bounce in two phases (delta tracking, then direct
+lighting and the new direction) on the lanes alive at that phase,
+compacted exactly.  Dead lanes keep their values and their RNG chains
+stop, as on the JAX package's compacted path; live lanes see the same
+draws as in JAX.  Because ratio tracking's segment schedule depends on
+how many lanes the JAX package passes to the tracker (its compaction
+capacity, or the full batch on overflow), each call is given that count
+as ``plan_lanes``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import transmittance
+from .lights import LightFlags, Lights, sample_env_map
+from .sampling import hg_phase, new_ray_dir
+from .utils import rng
+from .volume import Volume, find_entry_exit
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceParams:
+    """Parameters of the piecewise (``pw``) tracking integrator."""
+
+    flags: LightFlags
+    max_track_steps: int = 128
+    segment: int = 8
+    # compaction capacities of the JAX package, as fractions of the lanes:
+    # they select its tracking schedule (see trace_path), not the values
+    bounce_compact_frac: float = 0.40
+    scene_compact_frac: float = 0.28
+
+    def primary_params(self) -> "TraceParams":
+        return dataclasses.replace(self, bounce_compact_frac=0.0,
+                                   scene_compact_frac=0.24)
+
+    def second_bounce_params(self) -> "TraceParams":
+        return dataclasses.replace(self, scene_compact_frac=0.22)
+
+
+def trace_scene(state, vol: Volume, lights: Lights, p: TraceParams, pos,
+                direction, plan_lanes: int | None = None):
+    """TraceScene(pos, dir) on (N, 3) live lanes: returns (rgb (N, 3),
+    new_state)."""
+    n = pos.shape[0]
+    plan_lanes = n if plan_lanes is None else plan_lanes
+    total = torch.zeros_like(pos)
+    segs = []   # (start, end, weight_fn)
+    if p.flags.dir_on:
+        dl = lights.dir_light
+        to_exit = (-dl.direction / torch.linalg.vector_norm(dl.direction)
+                   ).expand(pos.shape)
+        _, exit_pt, _ = find_entry_exit(vol, pos, to_exit)
+        phase = hg_phase(torch.sum(dl.direction * -direction, dim=-1), vol.g)
+        segs.append((pos, exit_pt, lambda tr, ph=phase, dl=dl:
+                     (tr * dl.strength * ph)[..., None]))
+    if p.flags.point_on:
+        pl = lights.point_light
+        lpos = pl.pos.expand(pos.shape)
+        to_light = lpos - pos
+        to_light = to_light / torch.clamp(
+            torch.linalg.vector_norm(to_light, dim=-1, keepdim=True),
+            min=1e-12)
+        phase = hg_phase(torch.sum(to_light * -direction, dim=-1), vol.g)
+        segs.append((lpos, pos, lambda tr, ph=phase, pl=pl:
+                     pl.color * (pl.strength * tr * ph)[..., None]))
+    if p.flags.env_on:
+        rand_dir, state = new_ray_dir(state, direction, vol.g,
+                                      phase_sampling=False)
+        phase = hg_phase(torch.sum(rand_dir * -direction, dim=-1), vol.g)
+        _, exit_pt, _ = find_entry_exit(vol, pos, rand_dir)
+        env = sample_env_map(lights.env, rand_dir)
+        segs.append((pos, exit_pt, lambda tr, ph=phase, env=env:
+                     env * (ph * tr)[..., None]))
+    if not segs:
+        return total, state
+
+    states = [state]
+    for _ in range(len(segs) - 1):
+        states.append(rng.uniform(states[-1])[1])
+    k = len(segs)
+    trans, state_cat = transmittance.ratio_track_pw(
+        torch.cat(states), vol, torch.cat([s[0] for s in segs]),
+        torch.cat([s[1] for s in segs]), p.max_track_steps, p.segment,
+        plan_lanes=k * plan_lanes)
+    for j, (_, _, weight) in enumerate(segs):
+        total = total + weight(trans[j * n:(j + 1) * n])
+    return total, state_cat[(k - 1) * n:]
+
+
+def _jax_lanes(n: int, frac: float, count: int) -> int:
+    """Lanes the JAX package hands a tracker for one compacted phase: the
+    static capacity when its live count fits, else the full batch."""
+    if frac > 0 and n >= transmittance.COMPACT_MIN_LANES:
+        cap = max(int(n * frac), 128)
+        return cap if count <= cap else n
+    return n
+
+
+def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
+               *, n_bounces: int, primary_ray_length: int | None = None,
+               primary_ray_prob: float = 0.0, active=None):
+    """The shared bounce loop.  ro/rd (N, 3): ray origins and unit
+    directions (the first segment starts at the box entry).  Returns dict
+    with radiance (N, 3), throughput (N,), did_scatter (N,), terminal_pos
+    / terminal_dir (N, 3) (the NRC query)."""
+    n = ro.shape[0]
+    dev = ro.device
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+    point, _, _ = find_entry_exit(vol, ro, rd)
+    direction = rd
+    radiance = torch.zeros_like(ro)
+    factor = torch.ones(n, dtype=ro.dtype, device=dev)
+    scattered = torch.zeros(n, dtype=torch.bool, device=dev)
+    alive = active
+    unrolled = (primary_ray_length is not None and primary_ray_prob == 0.0
+                and n_bounces <= 2
+                and n >= transmittance.COMPACT_MIN_LANES)
+
+    for i in range(n_bounces):
+        p_b = p.second_bounce_params() if unrolled and i > 0 else p
+        idx = torch.nonzero(alive).squeeze(1)
+        if idx.numel() == 0:
+            break
+        # delta phase: find the next collision
+        new_pt, exited, st = transmittance.delta_track_pw(
+            state[idx], vol, point[idx], direction[idx], p_b.max_track_steps,
+            p_b.segment,
+            plan_lanes=_jax_lanes(n, p_b.bounce_compact_frac, idx.numel()))
+        point = point.index_put((idx,), new_pt)
+        alive = alive.index_put((idx,), ~exited)
+        state = state.index_put((idx,), st)
+        scattered = scattered | alive
+
+        # scene phase: direct light at the collision, then a new direction
+        idx = torch.nonzero(alive).squeeze(1)
+        if idx.numel() == 0:
+            break
+        f_i = factor[idx] * 0.5
+        light, st = trace_scene(
+            state[idx], vol, lights, p_b, point[idx], direction[idx],
+            _jax_lanes(n, p_b.scene_compact_frac, idx.numel()))
+        radiance = radiance.index_put((idx,),
+                                      radiance[idx] + light * f_i[:, None])
+        factor = factor.index_put((idx,), f_i)
+        new_dir, st = new_ray_dir(st, direction[idx], vol.g,
+                                  phase_sampling=True)
+        direction = direction.index_put((idx,), new_dir)
+        if primary_ray_length is not None and i >= primary_ray_length:
+            u, st = rng.uniform(st)
+            terminate = (u >= primary_ray_prob) | (i == 128)
+            alive = alive.index_put((idx,), ~terminate)
+        state = state.index_put((idx,), st)
+
+    return dict(radiance=radiance, throughput=factor, did_scatter=scattered,
+                terminal_pos=point, terminal_dir=direction)
+
+
+def trace_primary(state, vol, lights, p: TraceParams, ro, rd, cfg,
+                  active=None):
+    """gen_rays TracePath: the short NRC path (``cfg`` gives
+    primary_ray_length / primary_ray_prob / max_primary_bounces)."""
+    if cfg.primary_ray_prob <= 0.0:
+        n = min(cfg.primary_ray_length + 1, cfg.max_primary_bounces)
+        prob = 0.0
+    else:
+        n = cfg.max_primary_bounces
+        prob = cfg.primary_ray_prob
+    return trace_path(state, vol, lights, p, ro, rd, n_bounces=n,
+                      primary_ray_length=cfg.primary_ray_length,
+                      primary_ray_prob=prob, active=active)
+
+
+def primary_miss_mask(vol: Volume, ro, rd):
+    """Rays that miss the volume box."""
+    _, _, hit = find_entry_exit(vol, ro, rd)
+    return ~hit

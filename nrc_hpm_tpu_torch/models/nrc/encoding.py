@@ -1,0 +1,184 @@
+"""NRC input encoding: multiresolution hash grid + OneBlob.
+
+Port of the inference side of ``nrc_hpm_tpu/models/nrc/encoding.py``
+(Instant-NGP / tiny-cuda-nn conventions): level scale
+``base * 2^(l log2 s) - 1``, resolution ``ceil(scale) + 1``; a level is
+DENSE (clamped linear index) when res^3 fits the table, else corners hash
+with primes (1, 2654435761, 805459861) modulo the level's table size;
+trilinear interpolation at ``pos * scale + 0.5``.  The inference table is
+bf16-packed (two features per 32-bit word).  Position encodings other than
+the hash grid and direction encodings other than OneBlob are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ...config import EncodingConfig
+from ...utils import rng
+
+PRIMES = (1, 2654435761, 805459861)
+
+
+@dataclasses.dataclass(frozen=True)
+class HashGridSpec:
+    n_levels: int = 16
+    n_features: int = 2
+    log2_table_size: int = 19
+    base_resolution: int = 16
+    per_level_scale: float = 2.0
+    n_dims: int = 3
+
+    @property
+    def table_size(self) -> int:
+        return 1 << self.log2_table_size
+
+    def level_scale(self, level: int) -> float:
+        return (math.exp2(level * math.log2(self.per_level_scale))
+                * self.base_resolution - 1.0)
+
+    def level_resolution(self, level: int) -> int:
+        return int(math.ceil(self.level_scale(level))) + 1
+
+    def level_params(self, level: int) -> int:
+        res = self.level_resolution(level)
+        n = min(res ** self.n_dims, self.table_size)
+        return (n + 7) // 8 * 8  # tcnn rounds up to a multiple of 8
+
+    def level_is_dense(self, level: int) -> bool:
+        return self.level_resolution(level) ** self.n_dims <= self.table_size
+
+    @property
+    def level_offsets(self) -> tuple:
+        offs, total = [], 0
+        for lv in range(self.n_levels):
+            offs.append(total)
+            total += self.level_params(lv)
+        return tuple(offs + [total])
+
+    @property
+    def total_params(self) -> int:
+        return self.level_offsets[-1]
+
+    @property
+    def out_dim(self) -> int:
+        return self.n_levels * self.n_features
+
+
+def init_hash_grid(generator: torch.Generator, spec: HashGridSpec
+                   ) -> torch.Tensor:
+    """tcnn's init: features uniform in [-1e-4, 1e-4]."""
+    u = torch.rand((spec.total_params, spec.n_features), generator=generator)
+    return (u * 2.0 - 1.0) * 1e-4
+
+
+def pack_table_bf16(table: torch.Tensor) -> torch.Tensor:
+    """(P, 2) float32 -> (P,) int32 words bf16(f0) << 16 | bf16(f1)."""
+    b = table.to(torch.bfloat16).contiguous().view(torch.int16).to(
+        torch.int64) & 0xFFFF
+    return rng.u32_to_i32((b[:, 0] << 16) | b[:, 1])
+
+
+def _corner_indices(x: torch.Tensor, spec: HashGridSpec):
+    """(N, 3) positions -> (idx (N, L, 8) int64 table rows, weight (N, L, 8)).
+    Corner c has offset bits (c >> 2, c >> 1, c) & 1 per dim."""
+    L = spec.n_levels
+    dev = x.device
+    scale = torch.tensor([spec.level_scale(lv) for lv in range(L)],
+                         dtype=torch.float32, device=dev)
+    res = torch.tensor([spec.level_resolution(lv) for lv in range(L)],
+                       dtype=torch.int64, device=dev)
+    dense = torch.tensor([spec.level_is_dense(lv) for lv in range(L)],
+                         device=dev)
+    params = torch.tensor([spec.level_params(lv) for lv in range(L)],
+                          dtype=torch.int64, device=dev)
+    offs = torch.tensor(spec.level_offsets[:-1], dtype=torch.int64,
+                        device=dev)
+    bits = torch.tensor([[(c >> (2 - d)) & 1 for d in range(3)]
+                         for c in range(8)], dtype=torch.int64, device=dev)
+
+    weight = lin = hsh = None
+    stride = torch.ones_like(res)
+    for d in range(spec.n_dims):
+        xs = x[:, d:d + 1] * scale + 0.5                   # (N, L)
+        x0 = torch.floor(xs)
+        w = (xs - x0)[..., None]                           # (N, L, 1)
+        cd = x0.to(torch.int64)[..., None] + bits[:, d]    # (N, L, 8)
+        wd = torch.where(bits[:, d].bool(), w, 1.0 - w)
+        weight = wd if weight is None else weight * wd
+        cc = torch.minimum(torch.clamp(cd, min=0), (res - 1)[:, None])
+        lin = cc * stride[:, None] if lin is None \
+            else lin + cc * stride[:, None]
+        stride = stride * res
+        # signed corner * prime keeps the two's-complement low 32 bits
+        h = (cd * PRIMES[d]) & rng.M32
+        hsh = h if hsh is None else hsh ^ h
+    idx = torch.where(dense[:, None], lin, hsh % params[:, None])
+    return idx + offs[:, None], weight
+
+
+def hash_grid_encode_packed(packed: torch.Tensor, x: torch.Tensor,
+                            spec: HashGridSpec) -> torch.Tensor:
+    """(N, 3) positions -> (N, L*2) features from a pack_table_bf16 table,
+    interleaved (level, feature)."""
+    idx, weight = _corner_indices(x, spec)
+    g = packed.to(torch.int64)[idx] & rng.M32              # (N, L, 8)
+    f0 = (rng.u32_to_f32(g & 0xFFFF0000) * weight).sum(-1)
+    f1 = (rng.u32_to_f32(g << 16) * weight).sum(-1)
+    return torch.stack([f0, f1], dim=-1).reshape(x.shape[0], -1)
+
+
+def one_blob_encode(x: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """OneBlob: the integral of a Gaussian (sigma = 1/n_bins) centered at
+    x over each of n_bins bins.  (N, d) -> (N, d*n_bins)."""
+    edges = torch.linspace(0.0, 1.0, n_bins + 1, device=x.device)
+    denom = float(np.float32(1.0 / n_bins * np.sqrt(2.0)))
+    z_hi = (edges[1:] - x[..., None]) / denom
+    z_lo = (edges[:-1] - x[..., None]) / denom
+    feats = 0.5 * (torch.erf(z_hi) - torch.erf(z_lo))
+    return feats.reshape(x.shape[0], -1)
+
+
+def encode_packed(packed: torch.Tensor, x5: torch.Tensor, spec: HashGridSpec,
+                  n_bins: int, out_dim: int) -> torch.Tensor:
+    """(N, 5) -> (N, out_dim): hash-grid features of the position from the
+    packed table ++ OneBlob of (theta, phi), padded with ones."""
+    pos_f = hash_grid_encode_packed(packed, x5[:, :3], spec)
+    dir_f = one_blob_encode(x5[:, 3:5], n_bins)
+    pad = torch.ones((x5.shape[0], out_dim - pos_f.shape[1] - dir_f.shape[1]),
+                     dtype=pos_f.dtype, device=x5.device)
+    return torch.cat([pos_f, dir_f, pad], dim=-1)
+
+
+class CompositeEncoding:
+    """Hash-grid position ++ OneBlob direction, padded with ones to a
+    multiple of 16 (``pos_id=0, dir_id=0``)."""
+
+    def __init__(self, cfg: EncodingConfig):
+        if cfg.pos_id != 0 or cfg.dir_id != 0:
+            raise NotImplementedError(
+                "only pos_id=0 (hash grid) and dir_id=0 (OneBlob) are "
+                "ported; the others come with kernel K4 (ROADMAP item 1.2)")
+        self.cfg = cfg
+        self.grid_spec = HashGridSpec(
+            n_levels=cfg.n_levels, n_features=cfg.n_features_per_level,
+            log2_table_size=cfg.log2_hashmap_size,
+            base_resolution=cfg.base_resolution,
+            per_level_scale=cfg.per_level_scale)
+        if self.grid_spec.n_features != 2:
+            raise NotImplementedError("the packed table holds 2 features")
+        self.raw_dim = self.grid_spec.out_dim + 2 * cfg.oneblob_n_bins
+        self.out_dim = (self.raw_dim + 15) // 16 * 16
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        return {"hash_table": init_hash_grid(generator, self.grid_spec)}
+
+    def __call__(self, packed: torch.Tensor, x5: torch.Tensor
+                 ) -> torch.Tensor:
+        """(N, 5) -> (N, out_dim) features from the packed table."""
+        return encode_packed(packed, x5, self.grid_spec,
+                             self.cfg.oneblob_n_bins, self.out_dim)

@@ -1,0 +1,94 @@
+"""Build the CUDA sources in ``csrc/`` with nvcc and load them via ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
+into ``_build/lib<name>-<hash>.so`` for ``sm_90a``, keyed by a hash of the
+source and flags, at the first call that needs it.  Importing this module
+needs no ``nvcc``; asking for a library without one raises.  The nvcc
+output (with ``-Xptxas -v``: registers, shared memory, spills) is kept
+beside the library as ``.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str, extra_flags: tuple = ()) -> Path:
+    """Build ``csrc/<name>.cu`` if its hashed library is missing."""
+    src = CSRC / f"{name}.cu"
+    flags = FLAGS + tuple(extra_flags)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                            ).hexdigest()[:16]
+    so = BUILD_DIR / f"lib{name}-{digest}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    res = subprocess.run([nvcc_path(), *flags, "-o", str(tmp), str(src)],
+                         capture_output=True, text=True)
+    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+@functools.cache
+def load(name: str, extra_flags: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built at first use).
+    Every library exports ``const char* <name>_error_string(int)``."""
+    lib = ctypes.CDLL(str(library_path(name, extra_flags)))
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Raise if a launch function returned a non-zero cudaError_t."""
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_cuda(name: str, tensors: dict, device: torch.device) -> None:
+    """Every tensor must be a contiguous tensor on ``device``."""
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def require(name: str, cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {what}")

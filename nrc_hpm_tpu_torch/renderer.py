@@ -1,0 +1,142 @@
+"""The NRC renderer's frozen-cache frame.
+
+Port of the serving path of ``nrc_hpm_tpu/renderer.py``
+(``NrcRenderer._step(train=False)``): pixel rays and the RNG init, the
+2-bounce primary trace with direct lighting, the 5-float NRC queries,
+cache inference on the scattered pixels, then composite and temporal
+blend.  Training (``step(train=True)``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .camera import Camera, pixel_rays
+from .config import AppConfig
+from .integrator import TraceParams, primary_miss_mask, trace_primary
+from .lights import LightFlags, Lights, lights_from_scene, sample_env_map
+from .models.nrc.cache import NeuralRadianceCache, NrcState
+from .sampling import dir_to_spherical_norm
+from .utils import rng
+from .volume import Volume, sky_uvw
+
+
+def primary_pass(rng_state, vol, lights, params: TraceParams,
+                 cfg: AppConfig, ro, rd):
+    """gen_rays: short path + NRC query export for (N, 3) rays.  Returns
+    dict with primary_color (N, 4) = (rgb, throughput), did_scatter,
+    nrc_pos, nrc_dir."""
+    miss = primary_miss_mask(vol, ro, rd)
+    res = trace_primary(rng_state, vol, lights, params, ro, rd, cfg,
+                        active=~miss)
+    did_scatter = res["did_scatter"] & ~miss
+    env_color = sample_env_map(lights.env, rd)
+    use_env = ~did_scatter
+    rgb = torch.where(use_env[..., None], env_color, res["radiance"])
+    w = torch.where(use_env, 1.0, res["throughput"])
+    return dict(primary_color=torch.cat([rgb, w[..., None]], dim=-1),
+                did_scatter=did_scatter, nrc_pos=res["terminal_pos"],
+                nrc_dir=res["terminal_dir"])
+
+
+def pack_nrc_inputs(vol: Volume, pos, direction) -> torch.Tensor:
+    """(pos, dir) -> the 5-float query: box coordinates and the
+    normalized (theta, phi)."""
+    return torch.cat([sky_uvw(vol, pos), dir_to_spherical_norm(direction)],
+                     dim=-1)
+
+
+def infer_filtered(cache: NeuralRadianceCache, nrc_state: NrcState, x5,
+                   scat) -> torch.Tensor:
+    """Cache inference on the scattered lanes only; other lanes get zero
+    (the reference zero-fills its infer buffers and skips empty batches;
+    the composite never reads those lanes)."""
+    out = torch.zeros((x5.shape[0], 3), dtype=torch.float32,
+                      device=x5.device)
+    idx = torch.nonzero(scat).squeeze(1)
+    if idx.numel():
+        out[idx] = cache.infer(nrc_state, x5[idx])
+    return out
+
+
+@dataclasses.dataclass
+class NrcRenderState:
+    image: torch.Tensor          # (H, W, 4) blended output
+    blend_index: int
+    nrc: NrcState
+    generator: torch.Generator   # draws the per-frame seeds
+
+
+class NrcRenderer:
+    """The neural-radiance-cache renderer on ``vol.device``; frames blend
+    into a running mean."""
+
+    def __init__(self, cfg: AppConfig, vol: Volume,
+                 lights: Optional[Lights] = None):
+        self.cfg = cfg
+        self.width = cfg.render_width
+        self.height = cfg.render_height
+        self.vol = vol
+        self.device = vol.device
+        self.lights = lights if lights is not None \
+            else lights_from_scene(cfg.scene, device=self.device)
+        self.primary_params = TraceParams(
+            flags=LightFlags.from_scene(cfg.scene),
+            max_track_steps=cfg.max_track_steps).primary_params()
+        self.cache = NeuralRadianceCache(cfg)
+
+    def init_state(self, seed: int = 0, nrc: Optional[NrcState] = None
+                   ) -> NrcRenderState:
+        """Fresh accumulation; the cache is ``nrc`` or a random init from
+        ``seed``."""
+        gen = torch.Generator().manual_seed(seed)
+        if nrc is None:
+            nrc = self.cache.init_state(gen, self.device)
+        return NrcRenderState(
+            image=torch.zeros((self.height, self.width, 4),
+                              dtype=torch.float32, device=self.device),
+            blend_index=1, nrc=nrc, generator=gen)
+
+    def step(self, state: NrcRenderState, camera: Camera,
+             train: bool = False,
+             frame_random: Optional[torch.Tensor] = None) -> NrcRenderState:
+        """One frame.  ``frame_random`` (4,) overrides the frame seed that
+        is otherwise drawn from ``state.generator``."""
+        if train:
+            raise NotImplementedError(
+                "step(train=True): cache training is not ported yet")
+        H, W = self.height, self.width
+        n = H * W
+        vol = self.vol
+        if frame_random is None:
+            frame_random = rng.frame_random(state.generator)
+        ro, rd, frag_uv = pixel_rays(camera, W, H)
+        rng_state = rng.init_state(frag_uv, frame_random).reshape(n)
+        flat_rd = rd.reshape(n, 3)
+        flat_ro = ro.expand(n, 3)
+        prim = primary_pass(rng_state, vol, self.lights, self.primary_params,
+                            self.cfg, flat_ro, flat_rd)
+
+        x5 = pack_nrc_inputs(vol, prim["nrc_pos"], prim["nrc_dir"])
+        nrc_rgb = infer_filtered(self.cache, state.nrc, x5,
+                                 prim["did_scatter"])
+
+        color = prim["primary_color"].reshape(H, W, 4)
+        use = prim["did_scatter"].reshape(H, W, 1)
+        add = torch.clamp(nrc_rgb.reshape(H, W, 3), min=0.0) * color[..., 3:]
+        out_rgb = color[..., :3] + torch.where(use, add, 0.0)
+        out = torch.cat([out_rgb, torch.ones_like(out_rgb[..., :1])], dim=-1)
+        bf = np.float32(1.0) / np.float32(state.blend_index)
+        image = float(bf) * out + float(np.float32(1.0) - bf) * state.image
+        return dataclasses.replace(state, image=image,
+                                   blend_index=state.blend_index + 1)
+
+
+def reset_accumulation(state: NrcRenderState) -> NrcRenderState:
+    """A camera change clears the temporal accumulation."""
+    return dataclasses.replace(state, image=torch.zeros_like(state.image),
+                               blend_index=1)
