@@ -5,13 +5,17 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from ``nrc_hpm_tpu_torch/csrc``, checks
-each against its plain PyTorch version at the main path's shapes, renders
-three frozen-cache NRC frames at 1920x1080 with the default 2^19 hash grid
-and 64x6 MLP (seeded random weights) on a procedural cloud, checks that
-every kernel ran in that frame loop, and checks a small frame against the
-same frame rendered through the plain versions on the CPU.  It prints the
-card's name and power limit, one line per kernel, the frame time, a JSON
+It builds the CUDA kernels from ``nrc_hpm_tpu_torch/csrc`` (one nvcc per
+source, in parallel), checks each against its plain PyTorch version at the
+main paths' shapes, then drives the NRC frame on a procedural cloud with
+seeded random weights: three frozen-cache frames at 1920x1080 with the
+default 2^19 hash grid and 64x6 MLP; five online-training frames (4 Adam
+steps of 2^14 samples, 32-bounce train paths) at the same configuration;
+two online frames at ``AppConfig.tpu_tuned()`` (2^12 tables, the packed
+training encode).  It checks that every kernel of each path ran in that
+path's frame loop, and checks small frozen and online frames against the
+same frames rendered through the plain versions on the CPU.  It prints the
+card's name and power limit, one line per kernel, the frame times, a JSON
 kernel summary, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises.  Without a CUDA device it exits with code 1.
@@ -19,6 +23,8 @@ Any failed check raises.  Without a CUDA device it exits with code 1.
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import os
 import re
@@ -30,6 +36,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_LANES = 1 << 20            # K1/K2 lanes: camera rays through the cloud
 N_X5 = 1 << 20               # K3 samples
+N_TRAIN = 1 << 14            # K7: one train batch ...
+N_TIME = 1 << 20             # ... and the timing size
 REPS = 5
 # K1/K2 share the plain version's operation order (-fmad=false), so they
 # must agree to libm ulps: every element within 1e-5 + 1e-5|ref| and lin
@@ -40,6 +48,23 @@ PW_TOL = dict(rtol=1e-5, atol=1e-5, max_bad=1e-5)
 # activation moves an output by ~0.4%: 99.99% of the elements within
 # 1e-2 + 1e-2|ref|, all within 1e-1 + 1e-1|ref|.
 K3_TOL = dict(rtol=1e-2, atol=1e-2, max_bad=1e-4, hard=1e-1)
+# K7 forward: the same corner math and products as the plain version, the
+# 8 products summed in another order: every feature within 2e-6 + 1e-5|ref|.
+K7_FWD_TOL = dict(rtol=1e-5, atol=2e-6, max_bad=0.0)
+# K7 backward: float32 atomics add in an order that changes from run to
+# run: every entry within 1e-7 + 1e-4 S, S the sum of the |terms| added
+# into it (the terms themselves are bitwise the plain version's).
+K7_BWD_TOL = dict(rtol=1e-4, atol=1e-7, max_bad=0.0)
+# Small online frame, kernels against plain-on-CPU.  The same train inputs
+# and state through train_frame: every trained entry within 1e-4 +
+# 1e-3|ref| (cuBLAS and atomics sum in another order).  The whole frame: a
+# train ray whose primary or train path flips on a libm ulp between CUDA
+# and the CPU gets another input or target (>= 99% of the train lanes
+# must agree within 1e-3), and Adam (steps of ~lr = 1e-2 wherever |g| >>
+# eps) spreads such a lane over the first MLP layer: >= 95% of the
+# entries of every leaf within 1e-4 + 1e-3|ref|.
+TRAIN_TOL = dict(rtol=1e-3, atol=1e-4, share=1.0)
+FRAME_TRAIN_TOL = dict(rtol=1e-3, atol=1e-4, share=0.95)
 
 
 def gpu_line() -> str:
@@ -65,10 +90,11 @@ def time_ms(torch, fn) -> float:
 
 
 def compare(torch, name, got: dict, want: dict, rtol, atol, max_bad,
-            hard=None) -> float:
+            hard=None, scale=None) -> float:
     """Max abs error over all outputs; raises if more than ``max_bad`` of
     the elements miss rtol/atol (integer outputs must be equal), or any
-    misses ``hard``."""
+    misses ``hard``.  ``scale`` (per key) replaces |ref| in the rtol
+    term."""
     worst, bad, total = 0.0, 0, 0
     for key, w in want.items():
         g = got[key]
@@ -82,7 +108,8 @@ def compare(torch, name, got: dict, want: dict, rtol, atol, max_bad,
                 raise AssertionError(f"{name}.{key}: non-finite output")
             err = (g - w).abs()
             worst = max(worst, float(err.max()))
-            miss = err > atol + rtol * w.abs()
+            ref = w.abs() if scale is None else scale[key]
+            miss = err > atol + rtol * ref
             if hard is not None and bool((err > hard + hard * w.abs()).any()):
                 raise AssertionError(f"{name}.{key}: error above {hard}")
         bad += int(miss.sum())
@@ -95,13 +122,18 @@ def compare(torch, name, got: dict, want: dict, rtol, atol, max_bad,
 
 
 def build() -> None:
-    """Build both libraries (timed) and print ptxas's register/spill lines."""
-    from nrc_hpm_tpu_torch.ops import _build, fused_encode_mlp, pw_kernels
+    """Build every library, one nvcc each, all started together (timed),
+    and print ptxas's register/spill lines."""
+    from nrc_hpm_tpu_torch.ops import (_build, fused_encode_mlp,
+                                       hash_grid_train, pw_kernels)
 
     t0 = time.perf_counter()
-    sos = [_build.library_path(pw_kernels._LIB, ("-fmad=false",)),
-           _build.library_path(fused_encode_mlp._LIB)]
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    jobs = [(pw_kernels._LIB, ("-fmad=false",)), (fused_encode_mlp._LIB, ()),
+            (hash_grid_train._LIB, ())]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        sos = list(pool.map(lambda job: _build.library_path(*job), jobs))
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, "
+          f"{len(jobs)} sources in parallel)")
     for so in sos:
         log = so.with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else []:
@@ -174,59 +206,208 @@ def kernel_phase(torch, dev, vol, cfg) -> list:
         "nrc_hpm_tpu/ops/fused_encode_mlp.py:66", err,
         time_ms(torch, lambda: fem.fused_encode_mlp_infer(*fargs)),
         time_ms(torch, lambda: fem.fused_encode_mlp_plain(*fargs)))
+    rows += train_encode_phase(torch, dev, cfg, gen)
     return rows
 
 
-def frame_phase(torch, dev, vol, cfg, gpu) -> dict:
-    from nrc_hpm_tpu_torch.camera import Camera
-    from nrc_hpm_tpu_torch.ops import fused_encode_mlp as fem
-    from nrc_hpm_tpu_torch.ops import pw_kernels as pk
-    from nrc_hpm_tpu_torch.renderer import NrcRenderer
+def train_encode_phase(torch, dev, cfg, gen) -> list:
+    """K7 forward and backward against their plain versions: the float32
+    table at the default 2^19 per level and the packed table at the
+    tpu_tuned 2^12, one train batch and 2^20 samples, unit-scale tables.
+    The rows carry the 2^19 float32 times at 2^20 samples (the default
+    configuration's route)."""
+    from nrc_hpm_tpu_torch.config import AppConfig
+    from nrc_hpm_tpu_torch.models.nrc.encoding import (CompositeEncoding,
+                                                       pack_table_bf16)
+    from nrc_hpm_tpu_torch.ops import hash_grid_train as hgt
 
-    r = NrcRenderer(cfg, vol)
-    state = r.init_state(seed=0)
-    cam = Camera.reference_camera(aspect=r.width / r.height, device=dev)
-    wrappers = dict(pw_events=pk.pw_events, pw_profile=pk.pw_profile,
-                    fused_encode_mlp=fem.fused_encode_mlp_infer)
-    for w in wrappers.values():
+    src = "nrc_hpm_tpu_torch/csrc/hash_grid_train.cu"
+    replaces = "nrc_hpm_tpu/models/nrc/encoding.py:296"
+    errs = {"hash_grid_train_fwd": 0.0, "hash_grid_train_bwd": 0.0}
+    times = {}
+    for packed, enc in ((False, cfg.encoding),
+                        (True, AppConfig.tpu_tuned().encoding)):
+        spec = CompositeEncoding(enc).grid_spec
+        table = (torch.rand((spec.total_params, 2), generator=gen) * 2 - 1
+                 ).to(dev)
+        src_table = pack_table_bf16(table) if packed else table
+        tag = (f"{'packed' if packed else 'float32'} "
+               f"2^{enc.log2_hashmap_size}")
+        for n in (N_TRAIN, N_TIME):
+            x = torch.rand((n, 3), generator=gen).to(dev)
+            x = x * 1.2 - 0.1          # box coordinates, a little outside
+            g = torch.randn((n, spec.out_dim), generator=gen).to(dev)
+            fargs = (src_table, x, spec, packed)
+            bargs = (x, g, spec, packed)
+            errs["hash_grid_train_fwd"] = max(
+                errs["hash_grid_train_fwd"], compare(
+                    torch, f"hash_grid_train_fwd {tag} n={n}",
+                    dict(out=hgt.hash_grid_train_fwd(*fargs)),
+                    dict(out=hgt.hash_grid_train_fwd_plain(*fargs)),
+                    **K7_FWD_TOL))
+            s = hgt.hash_grid_train_bwd_plain(x, g.abs(), spec, packed)
+            errs["hash_grid_train_bwd"] = max(
+                errs["hash_grid_train_bwd"], compare(
+                    torch, f"hash_grid_train_bwd {tag} n={n}",
+                    dict(dtable=hgt.hash_grid_train_bwd(*bargs)),
+                    dict(dtable=hgt.hash_grid_train_bwd_plain(*bargs)),
+                    scale=dict(dtable=s), **K7_BWD_TOL))
+            for name, fn, plain, args in (
+                    ("hash_grid_train_fwd", hgt.hash_grid_train_fwd,
+                     hgt.hash_grid_train_fwd_plain, fargs),
+                    ("hash_grid_train_bwd", hgt.hash_grid_train_bwd,
+                     hgt.hash_grid_train_bwd_plain, bargs)):
+                ms = time_ms(torch, lambda: fn(*args))
+                plain_ms = time_ms(torch, lambda: plain(*args))
+                print(f"{name} {tag} n={n}: kernel {ms:.3f} ms, plain "
+                      f"{plain_ms:.3f} ms")
+                times[(name, packed, n)] = (ms, plain_ms)
+    return [dict(name=name, route="cuda", source=src, replaces=replaces,
+                 max_abs_err=errs[name],
+                 ms=times[(name, False, N_TIME)][0],
+                 plain_ms=times[(name, False, N_TIME)][1])
+            for name in ("hash_grid_train_fwd", "hash_grid_train_bwd")]
+
+
+def wrappers() -> dict:
+    """Every kernel wrapper, by kernel name; each counts its launches."""
+    from nrc_hpm_tpu_torch.ops import fused_encode_mlp as fem
+    from nrc_hpm_tpu_torch.ops import hash_grid_train as hgt
+    from nrc_hpm_tpu_torch.ops import pw_kernels as pk
+
+    return dict(pw_events=pk.pw_events, pw_profile=pk.pw_profile,
+                fused_encode_mlp=fem.fused_encode_mlp_infer,
+                hash_grid_train_fwd=hgt.hash_grid_train_fwd,
+                hash_grid_train_bwd=hgt.hash_grid_train_bwd)
+
+
+FROZEN_KERNELS = ("pw_events", "pw_profile", "fused_encode_mlp")
+
+
+def run_frames(torch, r, state, cam, frames: int, train: bool):
+    """Drive ``frames`` frames with every launch count set to 0 just
+    before; returns (state, launches, per-frame seconds)."""
+    for w in wrappers().values():
         w.launches = 0
     times = []
-    for _ in range(3):
+    for _ in range(frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = r.step(state, cam, train=False)
+        state = r.step(state, cam, train=train)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    img = state.image
+    return state, {k: w.launches for k, w in wrappers().items()}, times
+
+
+def check_image(torch, r, img, label: str) -> None:
     if tuple(img.shape) != (r.height, r.width, 4):
-        raise AssertionError(f"image shape {tuple(img.shape)}")
+        raise AssertionError(f"{label}: image shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()):
-        raise AssertionError("non-finite pixels")
+        raise AssertionError(f"{label}: non-finite pixels")
     env = r.lights.env.strength
     scattered = (img[..., :3] - env).abs().amax(-1) > 1e-6
     frac = float(scattered.float().mean())
     inside = float(img[..., :3][scattered].mean()) if frac > 0 else 0.0
-    print(f"frame: 3 frozen frames {r.width}x{r.height}, launches "
-          f"{launches}, scattered fraction {frac:.4f}, mean rgb inside "
+    print(f"{label}: scattered fraction {frac:.4f}, mean rgb inside "
           f"{inside:.4f}")
     if frac <= 0 or inside <= 0:
-        raise AssertionError("no scattered pixels with radiance")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"{k} was not launched by the frame loop")
+        raise AssertionError(f"{label}: no scattered pixels with radiance")
+
+
+def check_launches(launches: dict, names, label: str) -> None:
+    print(f"{label}: launches {launches}")
+    for k in names:
+        if launches[k] <= 0:
+            raise AssertionError(f"{label}: {k} was not launched by the "
+                                 f"frame loop")
+
+
+def frame_phase(torch, dev, vol, cfg, gpu) -> dict:
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.renderer import NrcRenderer
+
+    r = NrcRenderer(cfg, vol)
+    cam = Camera.reference_camera(aspect=r.width / r.height, device=dev)
+    state, launches, times = run_frames(torch, r, r.init_state(seed=0), cam,
+                                        3, train=False)
+    label = f"frozen {r.width}x{r.height}"
+    check_image(torch, r, state.image, label)
+    check_launches(launches, FROZEN_KERNELS, label)
     ms = 1e3 * statistics.mean(times[1:])
-    print(f"frame: {ms:.1f} ms/frame (frames 2-3), "
+    print(f"frame: {ms:.1f} ms/frame (frozen, frames 2-3), "
           f"{r.width * r.height / (ms / 1e3):.4g} rays/s, first frame "
           f"{1e3 * times[0]:.1f} ms, on {gpu}")
     return launches
 
 
+def online_phase(torch, dev, vol, cfg, gpu, frames: int, label: str):
+    """``frames`` online-training frames: finite image and loss, 4 steps a
+    frame, the ring moved, every kernel launched in the loop."""
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.renderer import NrcRenderer
+
+    r = NrcRenderer(cfg, vol)
+    cam = Camera.reference_camera(aspect=r.width / r.height, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    state, launches, times = run_frames(torch, r, r.init_state(seed=0), cam,
+                                        frames, train=True)
+    check_image(torch, r, state.image, label)
+    check_launches(launches, wrappers(), label)
+    loss = float(state.nrc.loss)
+    if not torch.isfinite(state.nrc.loss):
+        raise AssertionError(f"{label}: non-finite loss")
+    if state.nrc.step != cfg.train_batch_count * frames:
+        raise AssertionError(f"{label}: {state.nrc.step} optimizer steps")
+    head, tail = int(state.ring.head), int(state.ring.tail)
+    if head == 0 and tail == 0:
+        raise AssertionError(f"{label}: the ring did not move")
+    ms = 1e3 * statistics.mean(times[1:])
+    print(f"{label}: {ms:.1f} ms/frame (online, frames 2-{frames}), "
+          f"first frame {1e3 * times[0]:.1f} ms, loss {loss:.4g}, "
+          f"{state.nrc.step} steps, ring head {head} tail {tail}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {gpu}")
+    return launches, r, state, cam
+
+
+def split_frame(torch, r, state, cam, gpu) -> None:
+    """One more synchronized online frame, with trace_fixed and
+    train_frame timed on the host clock around synchronized calls."""
+    from nrc_hpm_tpu_torch import renderer
+
+    spent = {"trace_fixed": 0.0, "train_frame": 0.0}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    trace_fixed = renderer.trace_fixed
+    renderer.trace_fixed = timed("trace_fixed", trace_fixed)
+    r.cache.train_frame = timed("train_frame", r.cache.train_frame)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.step(state, cam)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        renderer.trace_fixed = trace_fixed
+        del r.cache.train_frame
+    rest = total - spent["trace_fixed"] - spent["train_frame"]
+    print(f"split online frame: {1e3 * total:.1f} ms = trace_fixed "
+          f"{1e3 * spent['trace_fixed']:.1f} ms + train_frame "
+          f"{1e3 * spent['train_frame']:.1f} ms + the rest (primary, "
+          f"inference, train rays, ring) {1e3 * rest:.1f} ms, on {gpu}")
+
+
 def small_frame_check(torch, dev, vol, cfg) -> None:
     """A 96x54 frame through the kernels against the same frame through
     the plain versions on the CPU (same frame seed and weights)."""
-    import dataclasses
-
     from nrc_hpm_tpu_torch.camera import Camera
     from nrc_hpm_tpu_torch.renderer import NrcRenderer
 
@@ -240,7 +421,7 @@ def small_frame_check(torch, dev, vol, cfg) -> None:
                           r.cache.state_from_params(nrc.ema_params, d))
         nrc = st.nrc
         cam = Camera.reference_camera(aspect=96 / 54, device=d)
-        imgs.append(r.step(st, cam, frame_random=fr).image.cpu())
+        imgs.append(r.step(st, cam, train=False, frame_random=fr).image.cpu())
     err = (imgs[0] - imgs[1]).abs().amax(-1)
     close = float((err <= 1e-3).float().mean())
     print(f"small frame 96x54, kernels vs plain on the CPU: max_abs_err "
@@ -248,6 +429,75 @@ def small_frame_check(torch, dev, vol, cfg) -> None:
           f"(need >= 0.99)")
     if close < 0.99:
         raise AssertionError("kernel frame disagrees with the plain frame")
+
+
+def check_trained(torch, label, got, want, rtol, atol, share) -> None:
+    """Every parameter and EMA leaf of ``got`` against ``want``."""
+    from nrc_hpm_tpu_torch.models.nrc.cache import tree_leaves
+
+    for what in ("params", "ema_params"):
+        for i, (g, w) in enumerate(zip(tree_leaves(getattr(got, what)),
+                                       tree_leaves(getattr(want, what)))):
+            e = (g.cpu() - w).abs()
+            ok = float((e <= atol + rtol * w.abs()).float().mean())
+            print(f"{label} {what} leaf {i} {tuple(w.shape)}: {ok:.5f} of "
+                  f"entries within {atol:g} + {rtol:g}|ref| (need >= "
+                  f"{share}), max_abs_err {float(e.max()):.3e}")
+            if ok < share:
+                raise AssertionError(f"{label}: {what} leaf {i} disagrees")
+
+
+def small_online_check(torch, dev, vol, cfg) -> None:
+    """A 96x54 online frame (1,024 train rays, 4 steps of 256) through
+    the kernels against the same frame through the plain versions on the
+    CPU, from the same state and frame seed; then train_frame through the
+    kernels on the CPU frame's own train inputs and state."""
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.renderer import NrcRenderer
+
+    small = dataclasses.replace(cfg, render_width=96, render_height=54,
+                                log2_train_batch_size=8)
+    fr = torch.tensor([0.61, 0.27, 0.93, 0.08])
+    out, inputs, renderers = [], [], []
+    for d in (dev, torch.device("cpu")):
+        r = NrcRenderer(small, vol.to(d))
+        train_frame = r.cache.train_frame
+
+        def record(st, x5, target, train_frame=train_frame):
+            inputs.append((st, x5, target))
+            return train_frame(st, x5, target)
+
+        r.cache.train_frame = record
+        cam = Camera.reference_camera(aspect=96 / 54, device=d)
+        out.append(r.step(r.init_state(seed=5), cam, frame_random=fr))
+        del r.cache.train_frame
+        renderers.append(r)
+    gpu, cpu = out
+    err = (gpu.image.cpu() - cpu.image).abs().amax(-1)
+    close = float((err <= 1e-3).float().mean())
+    ring = [(int(s.ring.head), int(s.ring.tail)) for s in out]
+    lane_err = torch.maximum(
+        (inputs[0][1].cpu() - inputs[1][1]).abs().amax(-1),
+        (inputs[0][2].cpu() - inputs[1][2]).abs().amax(-1))
+    lanes = float((lane_err <= 1e-3).float().mean())
+    print(f"small online frame 96x54, kernels vs plain on the CPU: image "
+          f"max_abs_err {float(err.max()):.3e}, {close:.4f} of pixels "
+          f"within 1e-3 (need >= 0.99); train inputs and targets: "
+          f"{lanes:.4f} of {lane_err.numel()} lanes within 1e-3 (need >= "
+          f"0.99); ring (head, tail) {ring}; steps "
+          f"{gpu.nrc.step}/{cpu.nrc.step}")
+    if close < 0.99 or lanes < 0.99:
+        raise AssertionError("online kernel frame disagrees with the plain "
+                             "frame")
+    if ring[0] != ring[1] or gpu.nrc.step != cpu.nrc.step:
+        raise AssertionError("ring cursors or step counts differ")
+    check_trained(torch, "small online frame", gpu.nrc, cpu.nrc,
+                  **FRAME_TRAIN_TOL)
+    st, x5, target = inputs[1]
+    same = renderers[0].cache.train_frame(st.to(dev), x5.to(dev),
+                                          target.to(dev))
+    check_trained(torch, "train_frame on the same inputs", same, cpu.nrc,
+                  **TRAIN_TOL)
 
 
 def main() -> int:
@@ -276,10 +526,19 @@ def main() -> int:
     print(f"procedural cloud {vol.dims}, macro {vol.macro_dims}: "
           f"{time.perf_counter() - t0:.1f} s")
     rows = kernel_phase(torch, dev, vol, cfg)
-    launches = frame_phase(torch, dev, vol, cfg, gpu)
+    frame_phase(torch, dev, vol, cfg, gpu)
+    launches, r, state, cam = online_phase(
+        torch, dev, vol, cfg, gpu, 5, f"online {cfg.render_width}x"
+        f"{cfg.render_height} 2^{cfg.encoding.log2_hashmap_size}")
+    split_frame(torch, r, state, cam, gpu)
+    del r, state
+    tuned = AppConfig.tpu_tuned()
+    online_phase(torch, dev, vol, tuned, gpu, 2,
+                 f"online tpu_tuned 2^{tuned.encoding.log2_hashmap_size}")
     small_frame_check(torch, dev, vol, cfg)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    small_online_check(torch, dev, vol, cfg)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

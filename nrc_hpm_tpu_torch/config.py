@@ -1,9 +1,8 @@
 """Configuration dataclasses of the port.
 
-The fields of ``nrc_hpm_tpu/config.py`` that the serving path reads, under
-the same names and defaults, and the six scene presets.  Kept as a copy so
-the port imports nothing of the JAX package; the training fields come with
-the training port.
+The fields of ``nrc_hpm_tpu/config.py`` that the serving and training
+paths read, under the same names and defaults, and the six scene presets.
+Kept as a copy so the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -61,17 +60,76 @@ class SceneConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AppConfig:
+    # NN training
+    loss_fn: str = "RelativeL2Luminance"
+    optimizer: str = "Adam"
+    learning_rate: float = 0.01
+    ema_decay: float = 0.99
     encoding: EncodingConfig = dataclasses.field(
         default_factory=EncodingConfig)
     nn_width: int = 64
     nn_depth: int = 6
+    log2_train_batch_size: int = 14
+    train_batch_count: int = 4
     scene: SceneConfig = dataclasses.field(
         default_factory=lambda: SceneConfig.preset(4))
+    # path tracing
+    train_ring_buf_size: float = 1.0
+    train_spp: int = 1
     primary_ray_length: int = 1
     primary_ray_prob: float = 0.0
+    train_ray_length: int = 32
     render_width: int = 1920
     render_height: int = 1080
     # cap on tracking events per track call (the reference caps its loops
     # at 128) and on primary bounces
     max_track_steps: int = 128
     max_primary_bounces: int = 128
+    # bf16 packed-table forward for grids of <= 2^16 entries per level
+    # (encoding.use_train_fast); larger grids train the float32 table
+    hash_train_fast: bool = True
+    # train-target radiance clamp (the reference hardcodes 8.0)
+    train_target_clamp: float = 8.0
+    # surviving train paths add the pre-train cache's prediction at their
+    # terminal (pos, dir), scaled by the path throughput
+    train_cache_bootstrap: bool = False
+
+    @staticmethod
+    def tpu_tuned(**overrides) -> "AppConfig":
+        """The JAX package's TPU operating point: the defaults with 2^12
+        hash tables."""
+        enc = overrides.pop("encoding", EncodingConfig(log2_hashmap_size=12))
+        return AppConfig(encoding=enc, **overrides)
+
+    @property
+    def train_batch_size(self) -> int:
+        return 2 << (self.log2_train_batch_size - 1)
+
+    @property
+    def train_pixel_count(self) -> int:
+        return self.train_batch_count * self.train_batch_size
+
+    def train_subset(self) -> tuple[int, int, int, int]:
+        """(train_w, train_h, x_dist, y_dist): the most-square factoring
+        of train_pixel_count, the bigger factor along the wider screen
+        axis, with integer screen/train strides per axis."""
+        n = self.train_pixel_count
+        f = int(n ** 0.5)
+        while f >= 2:
+            if n % f == 0:
+                other = n // f
+                big, small = max(f, other), min(f, other)
+                if self.render_width > self.render_height:
+                    tw, th = big, small
+                else:
+                    tw, th = small, big
+                return (tw, th, self.render_width // tw,
+                        self.render_height // th)
+            f -= 1
+        raise ValueError(
+            f"Could not find suitable division of trainPixelCount {n}")
+
+    @property
+    def train_ring_size(self) -> int:
+        """Ring buffer capacity = train_ring_buf_size * train pixel count."""
+        return int(self.train_ring_buf_size * self.train_pixel_count)

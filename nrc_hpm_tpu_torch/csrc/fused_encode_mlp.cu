@@ -15,37 +15,23 @@
 // values, with every weight read a warp-wide shared-memory broadcast.
 // Tensor cores (mma.sync / wgmma) are left to a later change.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash_grid.cuh"
+
 namespace {
+
+using hash_grid::bf16_round;
+using hash_grid::hi_bf16;
+using hash_grid::Levels;
+using hash_grid::lo_bf16;
+using hash_grid::MAX_LEVELS;
 
 constexpr int THREADS = 128;
 constexpr int WIDTH = 64;      // hidden width (and padded input width)
 constexpr int OUT_PAD = 8;     // output columns padded to one 16-byte row
-constexpr int MAX_LEVELS = 16;
 constexpr int MAX_BINS = 8;
-
-struct Levels {
-  float scale[MAX_LEVELS];
-  int res[MAX_LEVELS];
-  int dense[MAX_LEVELS];
-  unsigned params[MAX_LEVELS];
-  int offset[MAX_LEVELS];
-};
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float lo_bf16(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-
-__device__ __forceinline__ float hi_bf16(uint32_t w) {
-  return __uint_as_float(w & 0xFFFF0000u);
-}
 
 // acc[0..8*Q) += h * row, row = Q x 8 bf16 starting at `row`.
 template <int Q>
@@ -88,33 +74,13 @@ fused_encode_mlp_kernel(const float* __restrict__ x5,
     for (int l = 0; l < MAX_LEVELS; ++l) {
       float f0 = 0.0f, f1 = 0.0f;
       if (l < n_levels) {
-        const float sc = lv.scale[l];
-        const float px = __fadd_rn(__fmul_rn(x, sc), 0.5f);
-        const float py = __fadd_rn(__fmul_rn(y, sc), 0.5f);
-        const float pz = __fadd_rn(__fmul_rn(z, sc), 0.5f);
-        const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
-        const int x0 = (int)fx, y0 = (int)fy, z0 = (int)fz;
-        const float wx = px - fx, wy = py - fy, wz = pz - fz;
-        const int res = lv.res[l];
+        const hash_grid::Cell cell = hash_grid::cell_of(x, y, z, lv.scale[l]);
         const uint32_t* tbl = table + lv.offset[l];
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
-          const int bx = (c >> 2) & 1, by = (c >> 1) & 1, bz = c & 1;
-          const int cx = x0 + bx, cy = y0 + by, cz = z0 + bz;
-          const float wc = __fmul_rn(__fmul_rn(bx ? wx : 1.0f - wx,
-                                               by ? wy : 1.0f - wy),
-                                     bz ? wz : 1.0f - wz);
-          uint32_t idx;
-          if (lv.dense[l]) {
-            const int ccx = min(max(cx, 0), res - 1);
-            const int ccy = min(max(cy, 0), res - 1);
-            const int ccz = min(max(cz, 0), res - 1);
-            idx = (uint32_t)(ccx + ccy * res + ccz * (res * res));
-          } else {
-            const uint32_t hsh = (uint32_t)cx ^ ((uint32_t)cy * 2654435761u) ^
-                                 ((uint32_t)cz * 805459861u);
-            idx = hsh % lv.params[l];
-          }
+          const float wc = hash_grid::corner_weight(cell, c);
+          const uint32_t idx = hash_grid::corner_index(
+              cell, c, lv.res[l], lv.dense[l], lv.params[l]);
           const uint32_t word = __ldg(tbl + idx);
           f0 += hi_bf16(word) * wc;
           f1 += lo_bf16(word) * wc;
@@ -182,15 +148,9 @@ extern "C" int fused_encode_mlp_launch(
   if (n_levels > MAX_LEVELS || n_bins > MAX_BINS || in_dim > WIDTH ||
       out_dim > OUT_PAD || 2 * n_levels + 2 * n_bins > in_dim)
     return (int)cudaErrorInvalidValue;
-  Levels lv;
-  for (int l = 0; l < MAX_LEVELS; ++l) {
-    const bool on = l < n_levels;
-    lv.scale[l] = on ? level_scale[l] : 0.0f;
-    lv.res[l] = on ? level_res[l] : 1;
-    lv.dense[l] = on ? level_dense[l] : 1;
-    lv.params[l] = on ? level_params[l] : 1u;
-    lv.offset[l] = on ? level_offset[l] : 0;
-  }
+  const Levels lv = hash_grid::make_levels(level_scale, level_res,
+                                           level_dense, level_params,
+                                           level_offset, n_levels);
   const size_t smem =
       (size_t)(depth * WIDTH * WIDTH + WIDTH * OUT_PAD) * sizeof(uint16_t);
   cudaError_t err = cudaFuncSetAttribute(

@@ -9,12 +9,14 @@ is drawn before tracking, exactly as the JAX package's batched path.
 
 ``trace_path`` runs each bounce in two phases (delta tracking, then direct
 lighting and the new direction) on the lanes alive at that phase,
-compacted exactly.  Dead lanes keep their values and their RNG chains
-stop, as on the JAX package's compacted path; live lanes see the same
-draws as in JAX.  Because ratio tracking's segment schedule depends on
-how many lanes the JAX package passes to the tracker (its compaction
-capacity, or the full batch on overflow), each call is given that count
-as ``plan_lanes``.
+compacted exactly, so live lanes see the same draws as in JAX.  Because
+ratio tracking's segment schedule depends on how many lanes the JAX
+package passes to the tracker (its compaction capacity, or the full batch
+below ``COMPACT_MIN_LANES`` and on overflow), each call is given that
+count as ``plan_lanes``.  Where the JAX package runs a phase on the full
+batch, every tracker call advances the RNG chain of dead lanes too (one
+step per call); the port advances them the same way, so the returned
+``state`` feeds a second ``trace_fixed`` pass exactly as in JAX.
 """
 
 from __future__ import annotations
@@ -109,13 +111,22 @@ def _jax_lanes(n: int, frac: float, count: int) -> int:
     return n
 
 
+def _advance_dead(state, alive, steps: int):
+    """Advance the RNG chain of the lanes that are not alive by ``steps``
+    draws (the JAX package's full-batch phases do so)."""
+    for _ in range(steps):
+        state = torch.where(alive, state, rng.uniform(state)[1])
+    return state
+
+
 def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
                *, n_bounces: int, primary_ray_length: int | None = None,
                primary_ray_prob: float = 0.0, active=None):
     """The shared bounce loop.  ro/rd (N, 3): ray origins and unit
     directions (the first segment starts at the box entry).  Returns dict
     with radiance (N, 3), throughput (N,), did_scatter (N,), terminal_pos
-    / terminal_dir (N, 3) (the NRC query)."""
+    / terminal_dir (N, 3) (the NRC query), alive (N,) (lanes still inside
+    the volume when the bounce budget ran out) and state (N,)."""
     n = ro.shape[0]
     dev = ro.device
     if active is None:
@@ -129,6 +140,7 @@ def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
     unrolled = (primary_ray_length is not None and primary_ray_prob == 0.0
                 and n_bounces <= 2
                 and n >= transmittance.COMPACT_MIN_LANES)
+    n_segs = int(p.flags.dir_on) + int(p.flags.point_on) + int(p.flags.env_on)
 
     for i in range(n_bounces):
         p_b = p.second_bounce_params() if unrolled and i > 0 else p
@@ -136,10 +148,12 @@ def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
         if idx.numel() == 0:
             break
         # delta phase: find the next collision
+        plan = _jax_lanes(n, p_b.bounce_compact_frac, idx.numel())
+        if plan == n:
+            state = _advance_dead(state, alive, 1)
         new_pt, exited, st = transmittance.delta_track_pw(
             state[idx], vol, point[idx], direction[idx], p_b.max_track_steps,
-            p_b.segment,
-            plan_lanes=_jax_lanes(n, p_b.bounce_compact_frac, idx.numel()))
+            p_b.segment, plan_lanes=plan)
         point = point.index_put((idx,), new_pt)
         alive = alive.index_put((idx,), ~exited)
         state = state.index_put((idx,), st)
@@ -147,12 +161,14 @@ def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
 
         # scene phase: direct light at the collision, then a new direction
         idx = torch.nonzero(alive).squeeze(1)
+        plan = _jax_lanes(n, p_b.scene_compact_frac, idx.numel())
+        if plan == n:
+            state = _advance_dead(state, alive, n_segs)
         if idx.numel() == 0:
             break
         f_i = factor[idx] * 0.5
         light, st = trace_scene(
-            state[idx], vol, lights, p_b, point[idx], direction[idx],
-            _jax_lanes(n, p_b.scene_compact_frac, idx.numel()))
+            state[idx], vol, lights, p_b, point[idx], direction[idx], plan)
         radiance = radiance.index_put((idx,),
                                       radiance[idx] + light * f_i[:, None])
         factor = factor.index_put((idx,), f_i)
@@ -166,7 +182,8 @@ def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
         state = state.index_put((idx,), st)
 
     return dict(radiance=radiance, throughput=factor, did_scatter=scattered,
-                terminal_pos=point, terminal_dir=direction)
+                terminal_pos=point, terminal_dir=direction, alive=alive,
+                state=state)
 
 
 def trace_primary(state, vol, lights, p: TraceParams, ro, rd, cfg,
@@ -182,6 +199,13 @@ def trace_primary(state, vol, lights, p: TraceParams, ro, rd, cfg,
     return trace_path(state, vol, lights, p, ro, rd, n_bounces=n,
                       primary_ray_length=cfg.primary_ray_length,
                       primary_ray_prob=prob, active=active)
+
+
+def trace_fixed(state, vol, lights, p: TraceParams, ro, rd, n_bounces: int,
+                active=None):
+    """Train TracePath: up to ``n_bounces`` delta-tracked bounces."""
+    return trace_path(state, vol, lights, p, ro, rd, n_bounces=n_bounces,
+                      active=active)
 
 
 def primary_miss_mask(vol: Volume, ro, rd):

@@ -1,35 +1,163 @@
-"""NeuralRadianceCache: encoding + MLP, serving side.
+"""NeuralRadianceCache: encoding + MLP + online training state.
 
-Port of ``init_state`` and ``infer`` of
-``nrc_hpm_tpu/models/nrc/cache.py``: inference serves the EMA parameters
-through the fused encode + MLP kernel (K3).  Training (Adam, the EMA
-update, the loss zoo) is not ported yet.
+Port of ``nrc_hpm_tpu/models/nrc/cache.py``.  Inference serves the EMA
+parameters through the fused encode + MLP kernel (K3).  Training takes
+``train_batch_count`` optimizer steps per frame: the forward and the table
+gradient go through the hash-grid training kernels (K7, via
+``CompositeEncoding``), the MLP backward through autograd, then Adam (or
+SGD) and the debiased parameter EMA as plain tensor functions in optax's
+operation order.  Adam is dense over every table row, as optax's is.  The
+losses are tcnn's, with the denominators detached.
+
+Parameters are ``{"encoding": {"hash_table": (P, 2)}, "mlp": {"layers":
+[(in, out), ...]}}`` float32 tensors; the Adam state is ``{"count": int,
+"mu": tree, "nu": tree}`` and SGD's is ``{}``.  Every update builds new
+tensors, as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ...config import AppConfig
 from ...ops.fused_encode_mlp import fused_encode_mlp_infer
 from .encoding import CompositeEncoding, pack_table_bf16
-from .mlp import init_mlp
+from .mlp import init_mlp, mlp_apply
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def tree_map(fn, *trees):
+    """fn over the leaves of parameter trees (dicts and lists of
+    tensors) of the same structure."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return [tree_map(fn, *leaves) for leaves in zip(*trees)]
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """tcnn relative-L2-luminance coefficients (0.299, 0.587, 0.114)."""
+    return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+
+
+def make_loss_fn_per_sample(name: str):
+    """tcnn loss zoo, per sample (mean over channels -> (B,)); the
+    relative losses' denominators carry no gradient, like tcnn's."""
+    name = name.lower()
+
+    def rel_l2_luminance(pred, target):
+        lum = luminance(pred).detach()
+        denom = lum * lum + 0.01
+        return torch.mean((pred - target) ** 2 / denom[..., None], dim=-1)
+
+    def rel_l2(pred, target):
+        denom = pred.detach() ** 2 + 0.01
+        return torch.mean((pred - target) ** 2 / denom, dim=-1)
+
+    def l2(pred, target):
+        return torch.mean((pred - target) ** 2, dim=-1)
+
+    def l1(pred, target):
+        return torch.mean(torch.abs(pred - target), dim=-1)
+
+    table = {"relativel2luminance": rel_l2_luminance,
+             "relativel2": rel_l2, "l2": l2, "l1": l1}
+    if name not in table:
+        raise ValueError(f"unsupported loss {name!r}; "
+                         f"choose from {sorted(table)}")
+    return table[name]
+
+
+def make_loss_fn(name: str):
+    """Batch-mean form of make_loss_fn_per_sample (the tcnn loss value)."""
+    per = make_loss_fn_per_sample(name)
+
+    def mean_loss(pred, target):
+        return torch.mean(per(pred, target))
+
+    return mean_loss
+
+
+def _f32_pow(base: float, t: int) -> float:
+    return float(np.float32(base) ** np.float32(t))
+
+
+def adam_init(params: dict) -> dict:
+    return {"count": 0, "mu": tree_map(torch.zeros_like, params),
+            "nu": tree_map(torch.zeros_like, params)}
+
+
+def adam_update(grads: dict, opt_state: dict, params: dict, lr: float):
+    """optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8): returns (params,
+    opt_state)."""
+    mu = tree_map(lambda g, m: (1 - ADAM_B1) * g + ADAM_B1 * m, grads,
+                  opt_state["mu"])
+    nu = tree_map(lambda g, v: (1 - ADAM_B2) * (g * g) + ADAM_B2 * v, grads,
+                  opt_state["nu"])
+    count = opt_state["count"] + 1
+    bc1 = float(np.float32(1) - np.float32(_f32_pow(ADAM_B1, count)))
+    bc2 = float(np.float32(1) - np.float32(_f32_pow(ADAM_B2, count)))
+
+    def step(p, m, v):
+        u = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
+        return p + (-lr) * u
+
+    return (tree_map(step, params, mu, nu),
+            {"count": count, "mu": mu, "nu": nu})
+
+
+def sgd_update(grads: dict, opt_state: dict, params: dict, lr: float):
+    """optax.sgd(lr): p - lr * g."""
+    return tree_map(lambda p, g: p + (-lr) * g, params, grads), opt_state
+
+
+def ema_update(ema: dict, params: dict, decay: float, step: int) -> dict:
+    """tcnn's debiased EMA: (e*d*(1 - d^t) + p*(1 - d)) / (1 - d^(t+1))
+    with t the number of steps taken before this one."""
+    one = np.float32(1)
+    old = float(one - np.float32(_f32_pow(decay, step)))
+    new = float(one / (one - np.float32(_f32_pow(decay, step + 1))))
+    return tree_map(lambda e, p: (e * decay * old + p * (1.0 - decay)) * new,
+                    ema, params)
 
 
 @dataclasses.dataclass
 class NrcState:
-    """The served (EMA) cache parameters: {"encoding": {"hash_table":
-    (P, 2)}, "mlp": {"layers": [(in, out), ...]}} float32 tensors."""
+    """Trainable cache state: the trained and the served (EMA) parameters,
+    the optimizer state, the last batch's loss (() float32 tensor) and the
+    number of optimizer steps taken."""
 
+    params: dict
     ema_params: dict
+    opt_state: dict
+    loss: torch.Tensor
+    step: int
+
+    def to(self, device) -> "NrcState":
+        opt = {k: v if k == "count" else _to(v, device)
+               for k, v in self.opt_state.items()}
+        return NrcState(params=_to(self.params, device),
+                        ema_params=_to(self.ema_params, device),
+                        opt_state=opt, loss=self.loss.to(device),
+                        step=self.step)
 
 
 def _to(params: dict, device) -> dict:
-    return {"encoding": {"hash_table":
-                         params["encoding"]["hash_table"].to(device)},
-            "mlp": {"layers": [w.to(device) for w in params["mlp"]["layers"]]}}
+    return tree_map(lambda t: t.to(device), params)
 
 
 class NeuralRadianceCache:
@@ -41,6 +169,13 @@ class NeuralRadianceCache:
         self.encoding = CompositeEncoding(cfg.encoding)
         self.width = cfg.nn_width
         self.depth = cfg.nn_depth
+        self.loss_fn = make_loss_fn(cfg.loss_fn)
+        opt = cfg.optimizer.lower()
+        if opt not in ("adam", "sgd"):
+            raise ValueError(f"unsupported optimizer {cfg.optimizer!r}")
+        self.optimizer = opt
+        self.ema_decay = cfg.ema_decay
+        self.train_fast = cfg.hash_train_fast
 
     def init_state(self, generator: torch.Generator, device="cpu"
                    ) -> NrcState:
@@ -54,7 +189,20 @@ class NeuralRadianceCache:
         return self.state_from_params(params, device)
 
     def state_from_params(self, params: dict, device="cpu") -> NrcState:
-        return NrcState(ema_params=_to(params, device))
+        """A fresh training state whose trained and served parameters are
+        copies of ``params``."""
+        params = tree_map(lambda t: t.to(device, copy=True), params)
+        return NrcState(
+            params=params, ema_params=tree_map(torch.clone, params),
+            opt_state=adam_init(params) if self.optimizer == "adam" else {},
+            loss=torch.zeros((), dtype=torch.float32, device=device),
+            step=0)
+
+    # -- forward ------------------------------------------------------------
+    def apply(self, params: dict, x5: torch.Tensor, train_fast: bool = False
+              ) -> torch.Tensor:
+        feats = self.encoding(params["encoding"], x5, train_fast=train_fast)
+        return mlp_apply(params["mlp"], feats)
 
     def infer(self, state: NrcState, x5: torch.Tensor) -> torch.Tensor:
         """(N, 5) inputs -> (N, 3) predictions with the EMA parameters,
@@ -66,3 +214,42 @@ class NeuralRadianceCache:
             state.ema_params["mlp"]["layers"], x5.contiguous(),
             self.encoding.grid_spec, n_bins=self.cfg.encoding.oneblob_n_bins,
             out_dim=self.N_OUTPUT)
+
+    # -- training -----------------------------------------------------------
+    def loss_and_grads(self, params: dict, x5: torch.Tensor,
+                       target: torch.Tensor):
+        """(loss, gradient tree) of one batch."""
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        it = iter(leaves)
+        live = tree_map(lambda _: next(it), params)
+        with torch.enable_grad():
+            loss = self.loss_fn(self.apply(live, x5, self.train_fast),
+                                target)
+            grads = torch.autograd.grad(loss, leaves)
+        it = iter(grads)
+        return loss.detach(), tree_map(lambda _: next(it), params)
+
+    def train_step(self, state: NrcState, x5: torch.Tensor,
+                   target: torch.Tensor) -> NrcState:
+        """One optimizer step on one (batch, 5)/(batch, 3) training
+        batch, then the EMA."""
+        loss, grads = self.loss_and_grads(state.params, x5, target)
+        update = adam_update if self.optimizer == "adam" else sgd_update
+        params, opt_state = update(grads, state.opt_state, state.params,
+                                   self.cfg.learning_rate)
+        ema = ema_update(state.ema_params, params, self.ema_decay,
+                         state.step)
+        return NrcState(params=params, ema_params=ema, opt_state=opt_state,
+                        loss=loss, step=state.step + 1)
+
+    def train_frame(self, state: NrcState, x5: torch.Tensor,
+                    target: torch.Tensor) -> NrcState:
+        """``train_batch_count`` sequential steps over equal slices of the
+        frame's training set."""
+        n = self.cfg.train_batch_count
+        bs = x5.shape[0] // n
+        for i in range(n):
+            sl = slice(i * bs, (i + 1) * bs)
+            state = self.train_step(state, x5[sl], target[sl])
+        return state

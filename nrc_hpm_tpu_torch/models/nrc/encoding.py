@@ -1,13 +1,17 @@
 """NRC input encoding: multiresolution hash grid + OneBlob.
 
-Port of the inference side of ``nrc_hpm_tpu/models/nrc/encoding.py``
-(Instant-NGP / tiny-cuda-nn conventions): level scale
-``base * 2^(l log2 s) - 1``, resolution ``ceil(scale) + 1``; a level is
-DENSE (clamped linear index) when res^3 fits the table, else corners hash
-with primes (1, 2654435761, 805459861) modulo the level's table size;
-trilinear interpolation at ``pos * scale + 0.5``.  The inference table is
-bf16-packed (two features per 32-bit word).  Position encodings other than
-the hash grid and direction encodings other than OneBlob are not ported.
+Port of ``nrc_hpm_tpu/models/nrc/encoding.py`` (Instant-NGP /
+tiny-cuda-nn conventions): level scale ``base * 2^(l log2 s) - 1``,
+resolution ``ceil(scale) + 1``; a level is DENSE (clamped linear index)
+when res^3 fits the table, else corners hash with primes (1, 2654435761,
+805459861) modulo the level's table size; trilinear interpolation at
+``pos * scale + 0.5``.  Inference reads the bf16-packed table (two
+features per 32-bit word).  Training encodes through kernel K7
+(``ops/hash_grid_train.py``): from the packed table for grids of <= 2^16
+entries per level (``hash_grid_encode_train``), else from the float32
+table (``hash_grid_encode``); the gradient reaches the table only.
+Position encodings other than the hash grid and direction encodings other
+than OneBlob are not ported.
 """
 
 from __future__ import annotations
@@ -132,6 +136,31 @@ def hash_grid_encode_packed(packed: torch.Tensor, x: torch.Tensor,
     return torch.stack([f0, f1], dim=-1).reshape(x.shape[0], -1)
 
 
+def hash_grid_encode(table: torch.Tensor, x: torch.Tensor,
+                     spec: HashGridSpec) -> torch.Tensor:
+    """(N, 3) positions -> (N, L*2) features from the (P, 2) float32
+    table, differentiable in the table."""
+    from ...ops.hash_grid_train import HashGridTrainEncode
+    return HashGridTrainEncode.apply(table, x, spec, False)
+
+
+def hash_grid_encode_train(table: torch.Tensor, x: torch.Tensor,
+                           spec: HashGridSpec) -> torch.Tensor:
+    """hash_grid_encode from the bf16-packed copy of the table (features
+    rounded like tcnn's half-precision parameters); each table-gradient
+    term is rounded to bf16 and summed in float32."""
+    from ...ops.hash_grid_train import HashGridTrainEncode
+    return HashGridTrainEncode.apply(table, x, spec, True)
+
+
+def use_train_fast(spec: HashGridSpec | None) -> bool:
+    """The JAX package's packed training path covers grids whose levels
+    hold at most 2^16 entries; bigger grids train the float32 table."""
+    return (spec is not None
+            and max(spec.level_params(lv)
+                    for lv in range(spec.n_levels)) <= (1 << 16))
+
+
 def one_blob_encode(x: torch.Tensor, n_bins: int) -> torch.Tensor:
     """OneBlob: the integral of a Gaussian (sigma = 1/n_bins) centered at
     x over each of n_bins bins.  (N, d) -> (N, d*n_bins)."""
@@ -177,8 +206,24 @@ class CompositeEncoding:
     def init_params(self, generator: torch.Generator) -> dict:
         return {"hash_table": init_hash_grid(generator, self.grid_spec)}
 
-    def __call__(self, packed: torch.Tensor, x5: torch.Tensor
-                 ) -> torch.Tensor:
-        """(N, 5) -> (N, out_dim) features from the packed table."""
-        return encode_packed(packed, x5, self.grid_spec,
-                             self.cfg.oneblob_n_bins, self.out_dim)
+    def __call__(self, params: dict, x5: torch.Tensor,
+                 packed: torch.Tensor | None = None,
+                 train_fast: bool = False) -> torch.Tensor:
+        """(N, 5) -> (N, out_dim) features.  With ``packed`` (the
+        pack_table_bf16 words) the grid reads the packed table, without
+        gradients; with ``train_fast`` and a grid of <= 2^16 entries per
+        level, the differentiable packed path; else the float32 table of
+        ``params``."""
+        from ...ops.hash_grid_train import hash_grid_train_fwd
+        pos = x5[:, :3]
+        spec = self.grid_spec
+        if packed is not None:
+            pos_f = hash_grid_train_fwd(packed, pos.contiguous(), spec, True)
+        elif train_fast and use_train_fast(spec):
+            pos_f = hash_grid_encode_train(params["hash_table"], pos, spec)
+        else:
+            pos_f = hash_grid_encode(params["hash_table"], pos, spec)
+        dir_f = one_blob_encode(x5[:, 3:5], self.cfg.oneblob_n_bins)
+        pad = torch.ones((x5.shape[0], self.out_dim - self.raw_dim),
+                         dtype=pos_f.dtype, device=x5.device)
+        return torch.cat([pos_f, dir_f, pad], dim=-1)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``_build/lib<name>-<hash>.so`` for ``sm_90a``, keyed by a hash of the
-source and flags, at the first call that needs it.  Importing this module
+source, the shared ``csrc/*.cuh`` headers and the flags, at the first call
+that needs it.  Importing this module
 needs no ``nvcc``; asking for a library without one raises.  The nvcc
 output (with ``-Xptxas -v``: registers, shared memory, spills) is kept
 beside the library as ``.log``.
@@ -38,8 +39,9 @@ def library_path(name: str, extra_flags: tuple = ()) -> Path:
     """Build ``csrc/<name>.cu`` if its hashed library is missing."""
     src = CSRC / f"{name}.cu"
     flags = FLAGS + tuple(extra_flags)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
-                            ).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(flags).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}-{digest}.so"
     if so.exists():
         return so

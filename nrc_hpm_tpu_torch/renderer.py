@@ -1,10 +1,13 @@
-"""The NRC renderer's frozen-cache frame.
+"""The NRC renderer's frame: online training, or a frozen cache.
 
-Port of the serving path of ``nrc_hpm_tpu/renderer.py``
-(``NrcRenderer._step(train=False)``): pixel rays and the RNG init, the
-2-bounce primary trace with direct lighting, the 5-float NRC queries,
-cache inference on the scattered pixels, then composite and temporal
-blend.  Training (``step(train=True)``) is not ported yet.
+Port of ``nrc_hpm_tpu/renderer.py`` (``NrcRenderer._step``): pixel rays
+and the RNG init, the 2-bounce primary trace with direct lighting, the
+5-float NRC queries, cache inference on the scattered pixels, composite
+and temporal blend; then, when training (the default), the train rays of
+a strided pixel grid (scattered pixels continue from their NRC query,
+the others pop a stored ray from the ring buffer), ``train_spp`` long
+``trace_fixed`` paths per ray, the clamped targets, the ring push and
+``train_batch_count`` optimizer steps.
 """
 
 from __future__ import annotations
@@ -17,9 +20,11 @@ import torch
 
 from .camera import Camera, pixel_rays
 from .config import AppConfig
-from .integrator import TraceParams, primary_miss_mask, trace_primary
+from .integrator import (TraceParams, primary_miss_mask, trace_fixed,
+                         trace_primary)
 from .lights import LightFlags, Lights, lights_from_scene, sample_env_map
 from .models.nrc.cache import NeuralRadianceCache, NrcState
+from .ring_buffer import RingBuffer, ring_pop, ring_push, ring_wrap
 from .sampling import dir_to_spherical_norm
 from .utils import rng
 from .volume import Volume, sky_uvw
@@ -67,6 +72,7 @@ def infer_filtered(cache: NeuralRadianceCache, nrc_state: NrcState, x5,
 class NrcRenderState:
     image: torch.Tensor          # (H, W, 4) blended output
     blend_index: int
+    ring: RingBuffer             # self-training (pos, dir) records
     nrc: NrcState
     generator: torch.Generator   # draws the per-frame seeds
 
@@ -84,10 +90,12 @@ class NrcRenderer:
         self.device = vol.device
         self.lights = lights if lights is not None \
             else lights_from_scene(cfg.scene, device=self.device)
-        self.primary_params = TraceParams(
-            flags=LightFlags.from_scene(cfg.scene),
-            max_track_steps=cfg.max_track_steps).primary_params()
+        self.params = TraceParams(flags=LightFlags.from_scene(cfg.scene),
+                                  max_track_steps=cfg.max_track_steps)
+        self.primary_params = self.params.primary_params()
         self.cache = NeuralRadianceCache(cfg)
+        (self.train_w, self.train_h, self.train_x_dist,
+         self.train_y_dist) = cfg.train_subset()
 
     def init_state(self, seed: int = 0, nrc: Optional[NrcState] = None
                    ) -> NrcRenderState:
@@ -99,16 +107,16 @@ class NrcRenderer:
         return NrcRenderState(
             image=torch.zeros((self.height, self.width, 4),
                               dtype=torch.float32, device=self.device),
-            blend_index=1, nrc=nrc, generator=gen)
+            blend_index=1,
+            ring=RingBuffer.create(self.cfg.train_ring_size, self.device),
+            nrc=nrc, generator=gen)
 
     def step(self, state: NrcRenderState, camera: Camera,
-             train: bool = False,
+             train: bool = True,
              frame_random: Optional[torch.Tensor] = None) -> NrcRenderState:
-        """One frame.  ``frame_random`` (4,) overrides the frame seed that
-        is otherwise drawn from ``state.generator``."""
-        if train:
-            raise NotImplementedError(
-                "step(train=True): cache training is not ported yet")
+        """One frame; ``train=False`` renders with a frozen cache.
+        ``frame_random`` (4,) overrides the frame seed that is otherwise
+        drawn from ``state.generator``."""
         H, W = self.height, self.width
         n = H * W
         vol = self.vol
@@ -132,8 +140,75 @@ class NrcRenderer:
         out = torch.cat([out_rgb, torch.ones_like(out_rgb[..., :1])], dim=-1)
         bf = np.float32(1.0) / np.float32(state.blend_index)
         image = float(bf) * out + float(np.float32(1.0) - bf) * state.image
+
+        ring = ring_wrap(state.ring)
+        nrc = state.nrc
+        if train:
+            ring, nrc = self.train(state.nrc, ring, prim, frame_random)
         return dataclasses.replace(state, image=image,
-                                   blend_index=state.blend_index + 1)
+                                   blend_index=state.blend_index + 1,
+                                   ring=ring, nrc=nrc)
+
+    def train_rays(self, ring: RingBuffer, prim: dict):
+        """The train grid's rays: scattered pixels continue from their
+        NRC query, the others pop a stored ray.  Returns (scat, ro, rd,
+        ring)."""
+        dev = self.device
+        xs = torch.arange(self.train_w, device=dev) * self.train_x_dist
+        ys = torch.arange(self.train_h, device=dev) * self.train_y_dist
+        pix = (ys[:, None] * self.width + xs[None, :]).reshape(-1)
+        scat = prim["did_scatter"][pix]
+        popped, ring = ring_pop(ring, ~scat)
+        t_ro = torch.where(scat[:, None], prim["nrc_pos"][pix], popped[:, :3])
+        t_rd = torch.where(scat[:, None], prim["nrc_dir"][pix], popped[:, 3:])
+        t_rd = t_rd / torch.clamp(
+            torch.linalg.vector_norm(t_rd, dim=-1, keepdim=True), min=1e-12)
+        return scat, t_ro, t_rd, ring
+
+    def train_targets(self, nrc: NrcState, t_ro, t_rd, frame_random):
+        """``train_spp`` trace_fixed paths per train ray, averaged and
+        clamped.  The train RNG streams start from the screen UVs of the
+        train grid's corner subwindow (the reference does the same).
+        Divisions by a constant multiply by its float32 reciprocal, as the
+        compiled JAX frame does (XLA rewrites them so), which keeps the
+        seeds' float bits equal."""
+        cfg = self.cfg
+        dev = self.device
+        tx = torch.arange(self.train_w, dtype=torch.float32,
+                          device=dev) * (1.0 / self.width)
+        ty = torch.arange(self.train_h, dtype=torch.float32,
+                          device=dev) * (1.0 / self.height)
+        uv = torch.stack([tx[None, :].expand(self.train_h, -1),
+                          ty[:, None].expand(-1, self.train_w)], dim=-1)
+        t_state = rng.init_state(uv.reshape(-1, 2), frame_random)
+        target = torch.zeros_like(t_ro)
+        for _ in range(cfg.train_spp):
+            res = trace_fixed(t_state, self.vol, self.lights, self.params,
+                              t_ro, t_rd, cfg.train_ray_length)
+            spp_rad = res["radiance"]
+            if cfg.train_cache_bootstrap:
+                # surviving paths end in the pre-train cache, scaled by
+                # their throughput
+                boot_x5 = pack_nrc_inputs(self.vol, res["terminal_pos"],
+                                          res["terminal_dir"])
+                boot = torch.clamp(self.cache.infer(nrc, boot_x5), min=0.0)
+                spp_rad = spp_rad + torch.where(
+                    res["alive"][:, None], boot * res["throughput"][:, None],
+                    0.0)
+            target = target + spp_rad
+            t_state = res["state"]
+        target = target * (1.0 / cfg.train_spp)
+        return torch.clamp(target, max=cfg.train_target_clamp)
+
+    def train(self, nrc: NrcState, ring: RingBuffer, prim: dict,
+              frame_random) -> tuple:
+        """Train rays, targets, the ring push and the frame's optimizer
+        steps.  Returns (ring, nrc)."""
+        scat, t_ro, t_rd, ring = self.train_rays(ring, prim)
+        target = self.train_targets(nrc, t_ro, t_rd, frame_random)
+        ring = ring_push(ring, scat, torch.cat([t_ro, t_rd], dim=-1))
+        train_x5 = pack_nrc_inputs(self.vol, t_ro, t_rd)
+        return ring, self.cache.train_frame(nrc, train_x5, target)
 
 
 def reset_accumulation(state: NrcRenderState) -> NrcRenderState:

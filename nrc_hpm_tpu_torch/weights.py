@@ -1,10 +1,12 @@
-"""Cache parameters from the JAX package's layout.
+"""Cache and ring-buffer state from the JAX package's layout.
 
 The JAX cache keeps ``{"encoding": {"hash_table": (P, 2)}, "mlp":
 {"layers": [(in, out), ...]}}`` as arrays; ``params_from_jax`` takes the
 same tree as numpy arrays (for example ``jax.tree.map(np.asarray,
 state.ema_params)`` or a loaded checkpoint) and returns the port's
-float32 tensors in the same layout.
+float32 tensors in the same layout.  ``state_from_jax`` takes a whole
+``NrcState`` mapped to numpy (params, ema_params, the optax state, loss,
+step) and ``ring_from_jax`` a ``RingBuffer`` mapped to numpy.
 """
 
 from __future__ import annotations
@@ -12,13 +14,38 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.nrc.cache import NrcState
+from .ring_buffer import RingBuffer
+
+
+def _t(a, device, dtype=np.float32) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, dtype), device=device)
+
 
 def params_from_jax(ema_params_np: dict, device="cpu") -> dict:
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32).copy(),
-                               device=device)
-
     return {"encoding": {"hash_table":
-                         t(ema_params_np["encoding"]["hash_table"])},
-            "mlp": {"layers": [t(w) for w in
+                         _t(ema_params_np["encoding"]["hash_table"], device)},
+            "mlp": {"layers": [_t(w, device) for w in
                                ema_params_np["mlp"]["layers"]]}}
+
+
+def state_from_jax(nrc_state_np, device="cpu") -> NrcState:
+    """The JAX ``NrcState`` (leaves as numpy arrays) -> the port's.  Its
+    ``opt_state`` is optax's chain state: ``(ScaleByAdamState(count, mu,
+    nu), EmptyState())`` for Adam, empty states for SGD."""
+    s = nrc_state_np
+    adam = [o for o in s.opt_state if hasattr(o, "mu")]
+    opt = {} if not adam else {
+        "count": int(adam[0].count),
+        "mu": params_from_jax(adam[0].mu, device),
+        "nu": params_from_jax(adam[0].nu, device)}
+    return NrcState(params=params_from_jax(s.params, device),
+                    ema_params=params_from_jax(s.ema_params, device),
+                    opt_state=opt, loss=_t(s.loss, device),
+                    step=int(s.step))
+
+
+def ring_from_jax(ring_np, device="cpu") -> RingBuffer:
+    return RingBuffer(data=_t(ring_np.data, device),
+                      head=_t(ring_np.head, device, np.int32),
+                      tail=_t(ring_np.tail, device, np.int32))

@@ -94,7 +94,7 @@ def frames():
     tr = tren.NrcRenderer(tc, vol=tv)
     ts = tr.init_state(0, nrc=tr.cache.state_from_params(
         params_from_jax(ema)))
-    ts = tr.step(ts, tcam.Camera.reference_camera(W / H),
+    ts = tr.step(ts, tcam.Camera.reference_camera(W / H), train=False,
                  frame_random=torch.tensor(fr))
     return jimg, ts, tr
 
@@ -118,11 +118,15 @@ def test_blend_reset_and_train_guard(frames):
     cam = tcam.Camera.reference_camera(W / H)
     fr = torch.tensor([0.2, 0.4, 0.6, 0.8])
     one = tr.step(dataclasses.replace(ts, image=torch.zeros_like(ts.image),
-                                      blend_index=1), cam, frame_random=fr)
-    two = tr.step(one, cam, frame_random=fr)
+                                      blend_index=1), cam, train=False,
+                  frame_random=fr)
+    two = tr.step(one, cam, train=False, frame_random=fr)
     assert two.blend_index == 3
     torch.testing.assert_close(two.image, one.image, rtol=0, atol=1e-6)
     assert tren.reset_accumulation(two).blend_index == 1
     assert not tren.reset_accumulation(two).image.any()
-    with pytest.raises(NotImplementedError):
-        tr.step(ts, cam, train=True)
+    # a frozen step leaves the cache as it was
+    layer0 = ts.nrc.params["mlp"]["layers"][0].clone()
+    frozen = tr.step(ts, cam, train=False, frame_random=fr)
+    assert frozen.nrc.step == ts.nrc.step == 0
+    assert torch.equal(frozen.nrc.params["mlp"]["layers"][0], layer0)

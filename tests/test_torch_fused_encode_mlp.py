@@ -71,8 +71,8 @@ def test_encoding_features_match():
     x5 = _x5(512, 2)
     want = jc.encoding({}, jnp.asarray(x5), packed={
         "hash_table_packed": jenc.pack_table_bf16(jnp.asarray(table))})
-    got = tc.encoding(tenc.pack_table_bf16(torch.from_numpy(table)),
-                      torch.from_numpy(x5))
+    got = tc.encoding({}, torch.from_numpy(x5),
+                      packed=tenc.pack_table_bf16(torch.from_numpy(table)))
     assert got.shape == (512, tc.encoding.out_dim) == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6, err_msg="features within 1e-6")

@@ -14,6 +14,7 @@ import torch
 
 from nrc_hpm_tpu_torch.ops import _build
 from nrc_hpm_tpu_torch.ops import fused_encode_mlp as fem
+from nrc_hpm_tpu_torch.ops import hash_grid_train as hgt
 from nrc_hpm_tpu_torch.ops import pw_kernels as pk
 from nrc_hpm_tpu_torch.models.nrc.encoding import HashGridSpec
 from nrc_hpm_tpu_torch.volume import Volume
@@ -30,7 +31,8 @@ def _run(args, cwd, env_extra):
 
 def test_port_imports_no_jax():
     code = ("import sys, nrc_hpm_tpu_torch.renderer, "
-            "nrc_hpm_tpu_torch.weights, nrc_hpm_tpu_torch.utils.procedural\n"
+            "nrc_hpm_tpu_torch.weights, nrc_hpm_tpu_torch.utils.procedural, "
+            "nrc_hpm_tpu_torch.ops.hash_grid_train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'nrc_hpm_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -78,6 +80,21 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     assert [w.launches for w in wrappers] == before == [0, 0, 0]
 
 
+def test_train_encode_on_cpu_launches_nothing():
+    """The training encode pair, both table formats, forward and
+    backward through autograd: plain versions only."""
+    wrappers = (hgt.hash_grid_train_fwd, hgt.hash_grid_train_bwd)
+    spec = HashGridSpec(n_levels=2, log2_table_size=8)
+    x = torch.rand(32, 3)
+    for packed in (True, False):
+        table = torch.rand(spec.total_params, 2).requires_grad_(True)
+        feats = hgt.HashGridTrainEncode.apply(table, x, spec, packed)
+        feats.sum().backward()
+        assert feats.shape == (32, spec.out_dim)
+        assert table.grad.shape == table.shape and table.grad.any()
+    assert [w.launches for w in wrappers] == [0, 0]
+
+
 def test_other_devices_raise():
     vol, start, d, tmax, seed = _lanes(4)
     meta = [t.to("meta") for t in (start, d, tmax, seed)]
@@ -85,6 +102,14 @@ def test_other_devices_raise():
         pk.pw_profile(vol, *meta)
     with pytest.raises(ValueError, match="unsupported device"):
         pk.pw_events(vol, *meta, torch.zeros(4, device="meta"), 0)
+    spec = HashGridSpec(n_levels=2, log2_table_size=8)
+    x = torch.rand(4, 3, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        hgt.hash_grid_train_fwd(torch.zeros(spec.total_params, 2,
+                                            device="meta"), x, spec, False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hgt.hash_grid_train_bwd(x, torch.zeros(4, spec.out_dim,
+                                               device="meta"), spec, True)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
