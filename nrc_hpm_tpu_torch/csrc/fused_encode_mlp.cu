@@ -12,44 +12,27 @@
 // matrices (47.5 KB of bf16, layer 0 padded to 64 rows) in dynamic shared
 // memory, loaded once per persistent block; the activations stay in
 // registers and each product is a plain FMA loop in float32 on bf16
-// values, with every weight read a warp-wide shared-memory broadcast.
-// Tensor cores (mma.sync / wgmma) are left to a later change.
+// values, with every weight read a warp-wide shared-memory broadcast
+// (the row loop is csrc/mlp.cuh's, shared with K4).  Tensor cores
+// (mma.sync / wgmma) are left to a later change.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "hash_grid.cuh"
+#include "mlp.cuh"
 
 namespace {
 
-using hash_grid::bf16_round;
-using hash_grid::hi_bf16;
 using hash_grid::Levels;
-using hash_grid::lo_bf16;
 using hash_grid::MAX_LEVELS;
+using mlp::fma_row;
 
 constexpr int THREADS = 128;
 constexpr int WIDTH = 64;      // hidden width (and padded input width)
 constexpr int OUT_PAD = 8;     // output columns padded to one 16-byte row
 constexpr int MAX_BINS = 8;
-
-// acc[0..8*Q) += h * row, row = Q x 8 bf16 starting at `row`.
-template <int Q>
-__device__ __forceinline__ void fma_row(float* acc, float h,
-                                        const uint4* row) {
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const uint4 w = row[q];
-    acc[8 * q + 0] += h * lo_bf16(w.x);
-    acc[8 * q + 1] += h * hi_bf16(w.x);
-    acc[8 * q + 2] += h * lo_bf16(w.y);
-    acc[8 * q + 3] += h * hi_bf16(w.y);
-    acc[8 * q + 4] += h * lo_bf16(w.z);
-    acc[8 * q + 5] += h * hi_bf16(w.z);
-    acc[8 * q + 6] += h * lo_bf16(w.w);
-    acc[8 * q + 7] += h * hi_bf16(w.w);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 fused_encode_mlp_kernel(const float* __restrict__ x5,
@@ -82,8 +65,8 @@ fused_encode_mlp_kernel(const float* __restrict__ x5,
           const uint32_t idx = hash_grid::corner_index(
               cell, c, lv.res[l], lv.dense[l], lv.params[l]);
           const uint32_t word = __ldg(tbl + idx);
-          f0 += hi_bf16(word) * wc;
-          f1 += lo_bf16(word) * wc;
+          f0 += bf16::hi(word) * wc;
+          f1 += bf16::lo(word) * wc;
         }
       }
       h[2 * l] = f0;
@@ -113,7 +96,7 @@ fused_encode_mlp_kernel(const float* __restrict__ x5,
 
     // -- MLP: depth hidden layers (layer 0 padded to 64 rows), output ------
 #pragma unroll
-    for (int k = 0; k < WIDTH; ++k) h[k] = bf16_round(h[k]);
+    for (int k = 0; k < WIDTH; ++k) h[k] = bf16::round_rn(h[k]);
     for (int m = 0; m < depth; ++m) {
       const uint4* W = w_smem + m * (WIDTH * WIDTH / 8);
       float acc[WIDTH];
@@ -123,7 +106,7 @@ fused_encode_mlp_kernel(const float* __restrict__ x5,
       for (int k = 0; k < WIDTH; ++k)
         fma_row<WIDTH / 8>(acc, h[k], W + k * (WIDTH / 8));
 #pragma unroll
-      for (int j = 0; j < WIDTH; ++j) h[j] = bf16_round(fmaxf(acc[j], 0.0f));
+      for (int j = 0; j < WIDTH; ++j) h[j] = bf16::round_rn(fmaxf(acc[j], 0.0f));
     }
     const uint4* Wo = w_smem + depth * (WIDTH * WIDTH / 8);
     float acc[OUT_PAD];

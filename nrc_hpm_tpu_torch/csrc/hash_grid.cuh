@@ -10,7 +10,6 @@
 // PyTorch version's, so the indices and weights agree bit for bit.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace hash_grid {
@@ -89,19 +88,6 @@ __device__ __forceinline__ uint32_t corner_index(const Cell& cell, int c,
   const uint32_t hsh = (uint32_t)cx ^ ((uint32_t)cy * 2654435761u) ^
                        ((uint32_t)cz * 805459861u);
   return hsh % params;
-}
-
-// A packed table word holds bf16(f0) in its high half, bf16(f1) in its low.
-__device__ __forceinline__ float lo_bf16(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-
-__device__ __forceinline__ float hi_bf16(uint32_t w) {
-  return __uint_as_float(w & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 }  // namespace hash_grid

@@ -28,6 +28,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "hash_grid.cuh"
 
 namespace {
@@ -59,8 +60,8 @@ hash_grid_train_fwd_kernel(const float* __restrict__ x,
     float v0, v1;
     if (PACKED) {
       const uint32_t word = __ldg(static_cast<const uint32_t*>(table) + idx);
-      v0 = hash_grid::hi_bf16(word);
-      v1 = hash_grid::lo_bf16(word);
+      v0 = bf16::hi(word);
+      v1 = bf16::lo(word);
     } else {
       const float2 v = __ldg(static_cast<const float2*>(table) + idx);
       v0 = v.x;
@@ -102,8 +103,8 @@ hash_grid_train_bwd_kernel(const float* __restrict__ x,
                                             lv.params[l]);
     float v0 = __fmul_rn(w, g.x), v1 = __fmul_rn(w, g.y);
     if (PACKED) {
-      v0 = hash_grid::bf16_round(v0);
-      v1 = hash_grid::bf16_round(v1);
+      v0 = bf16::round_rn(v0);
+      v1 = bf16::round_rn(v1);
     }
     add2(dtable + idx, v0, v1);
   }

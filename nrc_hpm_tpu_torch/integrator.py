@@ -6,6 +6,9 @@ light, the point light and one phase-weighted environment sample, with
 all shadow segments concatenated into ONE ratio-tracking call: segment k
 starts from the k-times-advanced RNG state, and the environment direction
 is drawn before tracking, exactly as the JAX package's batched path.
+With ``env_fixed16`` the environment sample's transmittance is the
+16-step fixed estimator instead, and only the other lights' segments are
+ratio-tracked.  ``coarse`` is the trackers' profile interval count.
 
 ``trace_path`` runs each bounce in two phases (delta tracking, then direct
 lighting and the new direction) on the lanes alive at that phase,
@@ -39,6 +42,12 @@ class TraceParams:
     flags: LightFlags
     max_track_steps: int = 128
     segment: int = 8
+    # coarse majorant intervals per track call: 32 runs kernels K1/K2,
+    # other counts the per-interval profile (K5)
+    coarse: int = 32
+    # the env in-scatter term through the golden-era 16-step fixed
+    # transmittance instead of ratio tracking
+    env_fixed16: bool = False
     # compaction capacities of the JAX package, as fractions of the lanes:
     # they select its tracking schedule (see trace_path), not the values
     bounce_compact_frac: float = 0.40
@@ -84,8 +93,13 @@ def trace_scene(state, vol: Volume, lights: Lights, p: TraceParams, pos,
         phase = hg_phase(torch.sum(rand_dir * -direction, dim=-1), vol.g)
         _, exit_pt, _ = find_entry_exit(vol, pos, rand_dir)
         env = sample_env_map(lights.env, rand_dir)
-        segs.append((pos, exit_pt, lambda tr, ph=phase, env=env:
-                     env * (ph * tr)[..., None]))
+        if p.env_fixed16:
+            trans = transmittance.fixed_step_transmittance(vol, pos, exit_pt,
+                                                           16)
+            total = total + env * (phase * trans)[..., None]
+        else:
+            segs.append((pos, exit_pt, lambda tr, ph=phase, env=env:
+                         env * (ph * tr)[..., None]))
     if not segs:
         return total, state
 
@@ -96,7 +110,7 @@ def trace_scene(state, vol: Volume, lights: Lights, p: TraceParams, pos,
     trans, state_cat = transmittance.ratio_track_pw(
         torch.cat(states), vol, torch.cat([s[0] for s in segs]),
         torch.cat([s[1] for s in segs]), p.max_track_steps, p.segment,
-        plan_lanes=k * plan_lanes)
+        plan_lanes=k * plan_lanes, coarse=p.coarse)
     for j, (_, _, weight) in enumerate(segs):
         total = total + weight(trans[j * n:(j + 1) * n])
     return total, state_cat[(k - 1) * n:]
@@ -140,7 +154,10 @@ def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
     unrolled = (primary_ray_length is not None and primary_ray_prob == 0.0
                 and n_bounces <= 2
                 and n >= transmittance.COMPACT_MIN_LANES)
-    n_segs = int(p.flags.dir_on) + int(p.flags.point_on) + int(p.flags.env_on)
+    # ratio-tracked shadow segments per scene phase (each advances the
+    # chain once)
+    n_segs = (int(p.flags.dir_on) + int(p.flags.point_on)
+              + int(p.flags.env_on and not p.env_fixed16))
 
     for i in range(n_bounces):
         p_b = p.second_bounce_params() if unrolled and i > 0 else p
@@ -153,7 +170,7 @@ def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
             state = _advance_dead(state, alive, 1)
         new_pt, exited, st = transmittance.delta_track_pw(
             state[idx], vol, point[idx], direction[idx], p_b.max_track_steps,
-            p_b.segment, plan_lanes=plan)
+            p_b.segment, plan_lanes=plan, coarse=p_b.coarse)
         point = point.index_put((idx,), new_pt)
         alive = alive.index_put((idx,), ~exited)
         state = state.index_put((idx,), st)

@@ -1,18 +1,24 @@
 """NeuralRadianceCache: encoding + MLP + online training state.
 
 Port of ``nrc_hpm_tpu/models/nrc/cache.py``.  Inference serves the EMA
-parameters through the fused encode + MLP kernel (K3).  Training takes
+parameters and dispatches as the JAX package does: in bfloat16 the
+default encoding (hash grid + OneBlob) runs the fused encode + MLP kernel
+(K3), every other encoding the split encode (the hash grid from the
+packed table through K7's forward) and then the fused MLP kernel (K4); in
+float32 the plain MLP runs in float32.  Training takes
 ``train_batch_count`` optimizer steps per frame: the forward and the table
 gradient go through the hash-grid training kernels (K7, via
-``CompositeEncoding``), the MLP backward through autograd, then Adam (or
-SGD) and the debiased parameter EMA as plain tensor functions in optax's
-operation order.  Adam is dense over every table row, as optax's is.  The
-losses are tcnn's, with the denominators detached.
+``CompositeEncoding``) when there is a hash grid, the MLP backward through
+autograd, then Adam (or SGD) and the debiased parameter EMA as plain
+tensor functions in optax's operation order.  Adam is dense over every
+table row, as optax's is.  The losses are tcnn's, with the denominators
+detached.
 
 Parameters are ``{"encoding": {"hash_table": (P, 2)}, "mlp": {"layers":
-[(in, out), ...]}}`` float32 tensors; the Adam state is ``{"count": int,
-"mu": tree, "nu": tree}`` and SGD's is ``{}``.  Every update builds new
-tensors, as the JAX package's does.
+[(in, out), ...]}}`` float32 tensors (``"encoding": {}`` without a hash
+grid); the Adam state is ``{"count": int, "mu": tree, "nu": tree}`` and
+SGD's is ``{}``.  Every update builds new tensors, as the JAX package's
+does.
 """
 
 from __future__ import annotations
@@ -24,8 +30,9 @@ import torch
 
 from ...config import AppConfig
 from ...ops.fused_encode_mlp import fused_encode_mlp_infer
+from ...ops.fused_mlp import fused_mlp_infer
 from .encoding import CompositeEncoding, pack_table_bf16
-from .mlp import init_mlp, mlp_apply
+from .mlp import compute_dtype, init_mlp, mlp_apply
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -175,6 +182,7 @@ class NeuralRadianceCache:
             raise ValueError(f"unsupported optimizer {cfg.optimizer!r}")
         self.optimizer = opt
         self.ema_decay = cfg.ema_decay
+        self.compute_dtype = compute_dtype(cfg.mlp_dtype)
         self.train_fast = cfg.hash_train_fast
 
     def init_state(self, generator: torch.Generator, device="cpu"
@@ -199,21 +207,31 @@ class NeuralRadianceCache:
             step=0)
 
     # -- forward ------------------------------------------------------------
-    def apply(self, params: dict, x5: torch.Tensor, train_fast: bool = False
-              ) -> torch.Tensor:
-        feats = self.encoding(params["encoding"], x5, train_fast=train_fast)
-        return mlp_apply(params["mlp"], feats)
+    def apply(self, params: dict, x5: torch.Tensor,
+              packed: torch.Tensor | None = None, train_fast: bool = False,
+              fused: bool = False) -> torch.Tensor:
+        """Encode, then the MLP: through K4 with ``fused`` in bfloat16,
+        else mlp_apply in the compute dtype (differentiable)."""
+        feats = self.encoding(params["encoding"], x5, packed=packed,
+                              train_fast=train_fast)
+        if fused and self.compute_dtype == torch.bfloat16:
+            return fused_mlp_infer(params["mlp"], feats, self.N_OUTPUT)
+        return mlp_apply(params["mlp"], feats, self.compute_dtype)
 
     def infer(self, state: NrcState, x5: torch.Tensor) -> torch.Tensor:
         """(N, 5) inputs -> (N, 3) predictions with the EMA parameters,
         the hash table packed to bf16 pairs like tcnn's half-precision
         inference parameters."""
-        enc = state.ema_params["encoding"]
-        return fused_encode_mlp_infer(
-            pack_table_bf16(enc["hash_table"]),
-            state.ema_params["mlp"]["layers"], x5.contiguous(),
-            self.encoding.grid_spec, n_bins=self.cfg.encoding.oneblob_n_bins,
-            out_dim=self.N_OUTPUT)
+        ema = state.ema_params
+        enc = self.encoding
+        packed = None if enc.grid_spec is None \
+            else pack_table_bf16(ema["encoding"]["hash_table"])
+        if (self.compute_dtype == torch.bfloat16 and enc.cfg.pos_id == 0
+                and enc.cfg.dir_id == 0):
+            return fused_encode_mlp_infer(
+                packed, ema["mlp"]["layers"], x5.contiguous(), enc.grid_spec,
+                n_bins=enc.cfg.oneblob_n_bins, out_dim=self.N_OUTPUT)
+        return self.apply(ema, x5, packed=packed, fused=True)
 
     # -- training -----------------------------------------------------------
     def loss_and_grads(self, params: dict, x5: torch.Tensor,
@@ -224,7 +242,8 @@ class NeuralRadianceCache:
         it = iter(leaves)
         live = tree_map(lambda _: next(it), params)
         with torch.enable_grad():
-            loss = self.loss_fn(self.apply(live, x5, self.train_fast),
+            loss = self.loss_fn(self.apply(live, x5,
+                                           train_fast=self.train_fast),
                                 target)
             grads = torch.autograd.grad(loss, leaves)
         it = iter(grads)

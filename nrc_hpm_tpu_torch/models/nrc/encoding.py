@@ -1,4 +1,5 @@
-"""NRC input encoding: multiresolution hash grid + OneBlob.
+"""NRC input encodings: multiresolution hash grid, OneBlob, Identity,
+TriangleWave and Frequency.
 
 Port of ``nrc_hpm_tpu/models/nrc/encoding.py`` (Instant-NGP /
 tiny-cuda-nn conventions): level scale ``base * 2^(l log2 s) - 1``,
@@ -9,9 +10,8 @@ when res^3 fits the table, else corners hash with primes (1, 2654435761,
 features per 32-bit word).  Training encodes through kernel K7
 (``ops/hash_grid_train.py``): from the packed table for grids of <= 2^16
 entries per level (``hash_grid_encode_train``), else from the float32
-table (``hash_grid_encode``); the gradient reaches the table only.
-Position encodings other than the hash grid and direction encodings other
-than OneBlob are not ported.
+table (``hash_grid_encode``); the gradient reaches the table only.  The
+other encodings have no parameters and are plain tensor functions.
 """
 
 from __future__ import annotations
@@ -172,6 +172,27 @@ def one_blob_encode(x: torch.Tensor, n_bins: int) -> torch.Tensor:
     return feats.reshape(x.shape[0], -1)
 
 
+def triangle_wave_encode(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
+    """tcnn TriangleWave: |2 (x 2^f - round(x 2^f))| for f < n_freqs.
+    (N, d) -> (N, d*n_freqs), frequencies minor."""
+    freqs = torch.tensor([2.0 ** f for f in range(n_freqs)],
+                         dtype=torch.float32, device=x.device)
+    xs = x[..., None] * freqs
+    tri = torch.abs(2.0 * (xs - torch.floor(xs + 0.5)))
+    return tri.reshape(x.shape[0], -1)
+
+
+def frequency_encode(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
+    """NeRF / tcnn Frequency: per input dim [sin(x 2^f pi) for f <
+    n_freqs] ++ [cos(x 2^f pi) ...], with the float32 values of 2^f pi.
+    (N, d) -> (N, d*2*n_freqs)."""
+    freqs = torch.tensor([(2.0 ** f) * math.pi for f in range(n_freqs)],
+                         dtype=torch.float32, device=x.device)
+    xs = x[..., None] * freqs
+    out = torch.cat([torch.sin(xs), torch.cos(xs)], dim=-1)
+    return out.reshape(x.shape[0], -1)
+
+
 def encode_packed(packed: torch.Tensor, x5: torch.Tensor, spec: HashGridSpec,
                   n_bins: int, out_dim: int) -> torch.Tensor:
     """(N, 5) -> (N, out_dim): hash-grid features of the position from the
@@ -184,46 +205,80 @@ def encode_packed(packed: torch.Tensor, x5: torch.Tensor, spec: HashGridSpec,
 
 
 class CompositeEncoding:
-    """Hash-grid position ++ OneBlob direction, padded with ones to a
-    multiple of 16 (``pos_id=0, dir_id=0``)."""
+    """Position encoding ++ direction encoding of the 5-float NRC input
+    (pos x/y/z, theta, phi), padded with ones to a multiple of 16 (tcnn
+    composite semantics).  ``grid_spec`` is None without a hash grid."""
 
     def __init__(self, cfg: EncodingConfig):
-        if cfg.pos_id != 0 or cfg.dir_id != 0:
-            raise NotImplementedError(
-                "only pos_id=0 (hash grid) and dir_id=0 (OneBlob) are "
-                "ported; the others come with kernel K4 (ROADMAP item 1.2)")
         self.cfg = cfg
-        self.grid_spec = HashGridSpec(
-            n_levels=cfg.n_levels, n_features=cfg.n_features_per_level,
-            log2_table_size=cfg.log2_hashmap_size,
-            base_resolution=cfg.base_resolution,
-            per_level_scale=cfg.per_level_scale)
-        if self.grid_spec.n_features != 2:
-            raise NotImplementedError("the packed table holds 2 features")
-        self.raw_dim = self.grid_spec.out_dim + 2 * cfg.oneblob_n_bins
+        self.grid_spec = None
+        if cfg.pos_id == 0:
+            self.grid_spec = HashGridSpec(
+                n_levels=cfg.n_levels, n_features=cfg.n_features_per_level,
+                log2_table_size=cfg.log2_hashmap_size,
+                base_resolution=cfg.base_resolution,
+                per_level_scale=cfg.per_level_scale)
+            if self.grid_spec.n_features != 2:
+                raise NotImplementedError(
+                    "the packed table holds 2 features")
+            pos_dim = self.grid_spec.out_dim
+        elif cfg.pos_id == 1:
+            pos_dim = 3
+        elif cfg.pos_id == 2:
+            pos_dim = 3 * cfg.pos_n_frequencies
+        elif cfg.pos_id == 3:
+            pos_dim = 3 * cfg.pos_n_frequencies * 2
+        else:
+            raise ValueError(f"invalid pos encoding id {cfg.pos_id}")
+        if cfg.dir_id == 0:
+            dir_dim = 2 * cfg.oneblob_n_bins
+        elif cfg.dir_id == 1:
+            dir_dim = 2
+        elif cfg.dir_id == 2:
+            dir_dim = 2 * cfg.dir_n_frequencies
+        else:
+            raise ValueError(f"invalid dir encoding id {cfg.dir_id}")
+        self.raw_dim = pos_dim + dir_dim
         self.out_dim = (self.raw_dim + 15) // 16 * 16
 
     def init_params(self, generator: torch.Generator) -> dict:
+        if self.grid_spec is None:
+            return {}
         return {"hash_table": init_hash_grid(generator, self.grid_spec)}
 
     def __call__(self, params: dict, x5: torch.Tensor,
                  packed: torch.Tensor | None = None,
                  train_fast: bool = False) -> torch.Tensor:
-        """(N, 5) -> (N, out_dim) features.  With ``packed`` (the
-        pack_table_bf16 words) the grid reads the packed table, without
-        gradients; with ``train_fast`` and a grid of <= 2^16 entries per
-        level, the differentiable packed path; else the float32 table of
-        ``params``."""
+        """(N, 5) -> (N, out_dim) features.  For the hash grid: with
+        ``packed`` (the pack_table_bf16 words) it reads the packed table
+        through K7's forward, without gradients; with ``train_fast`` and a
+        grid of <= 2^16 entries per level, the differentiable packed path;
+        else the float32 table of ``params``."""
         from ...ops.hash_grid_train import hash_grid_train_fwd
-        pos = x5[:, :3]
+        cfg = self.cfg
+        pos, direction = x5[:, :3], x5[:, 3:5]
         spec = self.grid_spec
-        if packed is not None:
-            pos_f = hash_grid_train_fwd(packed, pos.contiguous(), spec, True)
-        elif train_fast and use_train_fast(spec):
-            pos_f = hash_grid_encode_train(params["hash_table"], pos, spec)
+        if cfg.pos_id == 0:
+            if packed is not None:
+                pos_f = hash_grid_train_fwd(packed, pos.contiguous(), spec,
+                                            True)
+            elif train_fast and use_train_fast(spec):
+                pos_f = hash_grid_encode_train(params["hash_table"], pos,
+                                               spec)
+            else:
+                pos_f = hash_grid_encode(params["hash_table"], pos, spec)
+        elif cfg.pos_id == 1:
+            pos_f = pos
+        elif cfg.pos_id == 2:
+            pos_f = triangle_wave_encode(pos, cfg.pos_n_frequencies)
         else:
-            pos_f = hash_grid_encode(params["hash_table"], pos, spec)
-        dir_f = one_blob_encode(x5[:, 3:5], self.cfg.oneblob_n_bins)
+            pos_f = frequency_encode(pos, cfg.pos_n_frequencies)
+        if cfg.dir_id == 0:
+            dir_f = one_blob_encode(direction, cfg.oneblob_n_bins)
+        elif cfg.dir_id == 1:
+            dir_f = direction
+        else:
+            dir_f = triangle_wave_encode(direction, cfg.dir_n_frequencies)
         pad = torch.ones((x5.shape[0], self.out_dim - self.raw_dim),
                          dtype=pos_f.dtype, device=x5.device)
         return torch.cat([pos_f, dir_f, pad], dim=-1)

@@ -82,6 +82,16 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def on_card(name: str, device: torch.device) -> bool:
+    """True to launch the kernel (a CUDA tensor), False to run the plain
+    version (a CPU tensor); any other device raises."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    return True
+
+
 def require_cuda(name: str, tensors: dict, device: torch.device) -> None:
     """Every tensor must be a contiguous tensor on ``device``."""
     for key, t in tensors.items():

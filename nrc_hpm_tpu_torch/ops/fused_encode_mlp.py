@@ -95,11 +95,8 @@ def fused_encode_mlp_infer(packed_table: torch.Tensor, layers, x5,
     """x5 (N, 5) raw NRC inputs -> (N, out_dim) cache prediction.
     ``packed_table`` is pack_table_bf16's (P,) int32 words, ``layers`` the
     float32 (in, out) weight list."""
-    if x5.device.type == "cpu":
+    if not _build.on_card("fused_encode_mlp_infer", x5.device):
         return fused_encode_mlp_plain(packed_table, layers, x5, spec, n_bins)
-    if x5.device.type != "cuda":
-        raise ValueError(f"fused_encode_mlp_infer: unsupported device "
-                         f"{x5.device}")
     _check(packed_table, layers, x5, spec, n_bins, out_dim)
     n = x5.shape[0]
     out = torch.empty((n, out_dim), dtype=torch.float32, device=x5.device)

@@ -91,22 +91,12 @@ def _check(name, x, spec: HashGridSpec, tensors: dict):
                    "3-D, 2-feature grid with <= 16 levels")
 
 
-def _route(name, x) -> bool:
-    """True to launch the kernel (CUDA), False for the plain version
-    (CPU); other devices raise."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return True
-
-
 def hash_grid_train_fwd(table, x, spec: HashGridSpec, packed: bool
                         ) -> torch.Tensor:
     """x (N, 3) -> (N, L*2) float32 features.  ``table`` is the (P,)
     int32 pack_table_bf16 words when ``packed``, else (P, 2) float32."""
     name = "hash_grid_train_fwd"
-    if not _route(name, x):
+    if not _build.on_card(name, x.device):
         return hash_grid_train_fwd_plain(table, x, spec, packed)
     _check(name, x, spec, dict(table=table))
     want = ((spec.total_params,), torch.int32) if packed \
@@ -131,7 +121,7 @@ def hash_grid_train_bwd(x, gout, spec: HashGridSpec, packed: bool
                         ) -> torch.Tensor:
     """x (N, 3), gout (N, L*2) -> (P, 2) float32 table gradient."""
     name = "hash_grid_train_bwd"
-    if not _route(name, x):
+    if not _build.on_card(name, x.device):
         return hash_grid_train_bwd_plain(x, gout, spec, packed)
     _check(name, x, spec, dict(gout=gout))
     _build.require(name, gout.dtype == torch.float32

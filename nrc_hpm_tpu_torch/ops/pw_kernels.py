@@ -206,11 +206,9 @@ def _check_lanes(name, vol, start, direction, tmax, seed, extra=None):
 def pw_events(vol, start, direction, tmax, seed, e_last, e_base: int,
               S: int = 8, salt: int = SALT_RATIO):
     """Fused profile + S event draws + inversion for one tracking segment."""
-    if start.device.type == "cpu":
+    if not _build.on_card("pw_events", start.device):
         return pw_events_plain(vol, start, direction, tmax, seed, e_last,
                                e_base, S, salt)
-    if start.device.type != "cuda":
-        raise ValueError(f"pw_events: unsupported device {start.device}")
     n = _check_lanes("pw_events", vol, start, direction, tmax, seed, e_last)
     dev = start.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -241,11 +239,9 @@ pw_events.launches = 0
 def pw_profile(vol, start, direction, tmax, seed, want_ctrl: bool = False,
                salt_ctrl: int = SALT_CTRL):
     """Coarse-profile totals (and the control collision) for one track."""
-    if start.device.type == "cpu":
+    if not _build.on_card("pw_profile", start.device):
         return pw_profile_plain(vol, start, direction, tmax, seed,
                                 want_ctrl, salt_ctrl)
-    if start.device.type != "cuda":
-        raise ValueError(f"pw_profile: unsupported device {start.device}")
     n = _check_lanes("pw_profile", vol, start, direction, tmax, seed)
     dev = start.device
     out = {k: torch.empty(n, dtype=torch.float32, device=dev)

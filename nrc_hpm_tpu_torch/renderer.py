@@ -91,7 +91,8 @@ class NrcRenderer:
         self.lights = lights if lights is not None \
             else lights_from_scene(cfg.scene, device=self.device)
         self.params = TraceParams(flags=LightFlags.from_scene(cfg.scene),
-                                  max_track_steps=cfg.max_track_steps)
+                                  max_track_steps=cfg.max_track_steps,
+                                  env_fixed16=cfg.env_fixed16)
         self.primary_params = self.params.primary_params()
         self.cache = NeuralRadianceCache(cfg)
         (self.train_w, self.train_h, self.train_x_dist,

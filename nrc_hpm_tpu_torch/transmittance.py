@@ -1,9 +1,15 @@
-"""Piecewise-majorant delta and ratio tracking.
+"""Piecewise-majorant delta and ratio tracking, and the fixed-step
+transmittance.
 
-Port of the ``pw`` trackers of ``nrc_hpm_tpu/transmittance.py``, written
-against the kernel contract the JAX package uses on its kernel path: each
-track opens with ``pw_profile`` (K2) and runs segments of ``pw_events``
-(K1), with the fine-grid density gather and the ratio/delta fold in torch.
+Port of the ``pw`` trackers of ``nrc_hpm_tpu/transmittance.py``.  At the
+default ``coarse = 32`` intervals they follow the kernel contract the JAX
+package uses on its kernel path: each track opens with ``pw_profile``
+(K2) and runs segments of ``pw_events`` (K1), with the fine-grid density
+gather and the ratio/delta fold in torch.  At any other ``coarse`` they
+follow its per-interval path: ``_coarse_profile`` builds the (C, N)
+majorant/control profile from the packed macro table (K5, through
+``volume.macro_profile_xyz``), and each segment draws its event depths
+and inverts them through ``_map_events``.
 
 Events are drawn statelessly, indexed by a global event counter, so a
 lane's values do not depend on which other lanes run with it: the port
@@ -21,9 +27,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.pw_kernels import SALT_DELTA, SALT_RATIO, pw_events, pw_profile
+from .ops.pw_kernels import (SALT_CTRL, SALT_DELTA, SALT_RATIO, pw_events,
+                             pw_profile)
 from .utils import rng
-from .volume import Volume, find_entry_exit
+from .volume import (Volume, find_entry_exit, get_density_xyz,
+                     macro_profile_xyz)
+
+KERNEL_INTERVALS = 32     # the interval count K1/K2 are built for
 
 COMPACT_MIN_LANES = 32768
 # (events per segment, events in stage; None runs to max_steps); the
@@ -71,11 +81,122 @@ def _segments(plan_lanes: int, segment: int, plan, max_steps: int):
         e0 = max(e0, e1)
 
 
+def fixed_step_transmittance(vol: Volume, start, end, count: int):
+    """GetTransmittance: the deterministic ``count``-step Riemann product
+    exp(-sum density * step) with samples at the left endpoints i/count."""
+    d = end - start
+    step = torch.linalg.vector_norm(d, dim=-1) / count
+    fracs = torch.arange(count, dtype=torch.float32,
+                         device=start.device) / count
+    pts = start[..., None, :] + fracs[:, None] * d[..., None, :]
+    dens = get_density_xyz(vol, pts[..., 0], pts[..., 1], pts[..., 2])
+    trans = torch.exp(-torch.sum(dens, dim=-1) * step)
+    return torch.where(step == 0.0, 1.0, trans)
+
+
 def _fine_density(vol: Volume, lin):
     """density_factor/255 * grid[lin], 0 where lin = -1."""
     raw = vol.grid.reshape(-1)[torch.clamp(lin, min=0).to(torch.int64)]
     scale = float(np.float32(vol.density_factor) * np.float32(1.0 / 255.0))
     return torch.where(lin >= 0, raw.to(torch.float32) * scale, 0.0)
+
+
+# --- the per-interval path (coarse != 32) -----------------------------------
+
+_SCAN_BLOCK = 16
+
+
+def _cumsum0(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sum along dim 0 in the order of the JAX
+    package's ``jnp.cumsum`` (XLA's reduce-window rewrite): sequential
+    within blocks of 16, the block totals scanned the same way and added
+    in front.  (``torch.cumsum`` sums in double on the CPU and in a
+    parallel order on the GPU.)"""
+    n = x.shape[0]
+    if n <= _SCAN_BLOCK:
+        out = [x[0]]
+        for i in range(1, n):
+            out.append(out[-1] + x[i])
+        return torch.stack(out)
+    nb = -(-n // _SCAN_BLOCK)
+    pad = x.new_zeros((nb * _SCAN_BLOCK - n,) + x.shape[1:])
+    blocks = torch.cat([x, pad]).reshape(nb, _SCAN_BLOCK, *x.shape[1:])
+    local = [blocks[:, 0]]
+    for i in range(1, _SCAN_BLOCK):
+        local.append(local[-1] + blocks[:, i])
+    local = torch.stack(local, dim=1)
+    prefix = _cumsum0(local[:, -1])
+    out = torch.cat([local[:1], prefix[:-1, None] + local[1:]])
+    return out.reshape(nb * _SCAN_BLOCK, *x.shape[1:])[:n]
+
+
+def _coarse_profile(vol: Volume, start, direction, tmax, C: int):
+    """Piecewise-constant majorant/control profile of each lane's segment,
+    lane-minor: (sigma (C, N), c (C, N), ccum (C, N), rcum (C, N),
+    h (N,)).  sigma is the max of the packed majorant at both ends of an
+    interval, c the min of the control (and <= sigma)."""
+    h = tmax / C
+    ts = torch.arange(C + 1, dtype=torch.float32,
+                      device=tmax.device)[:, None] * h[None, :]
+    px = start[None, :, 0] + ts * direction[None, :, 0]
+    py = start[None, :, 1] + ts * direction[None, :, 1]
+    pz = start[None, :, 2] + ts * direction[None, :, 2]
+    smax, smin = macro_profile_xyz(vol, px, py, pz)
+    sigma = torch.maximum(smax[:-1], smax[1:])
+    c = torch.minimum(torch.minimum(smin[:-1], smin[1:]), sigma)
+    ccum = _cumsum0(c * h[None, :])
+    rcum = _cumsum0((sigma - c) * h[None, :])
+    return sigma, c, ccum, rcum, h
+
+
+def _map_events(E, cum, h, fields):
+    """Invert the piecewise-linear cumulative depth ``cum`` (C, N) at
+    event depths E (S, N): (t (S, N), beyond (S, N), [each (C, N) field at
+    the event's interval]).  Telescoping sums over the indicators
+    [E >= cum_c] select the interval, as the JAX package does; they
+    materialise one (S, C, N) float32 tensor."""
+    C = cum.shape[0]
+    ge = (E[:, None, :] >= cum[None]).to(torch.float32)
+    k = ge.sum(dim=1)
+    beyond = E >= cum[-1][None, :]
+
+    def sel(f):
+        d = f[1:] - f[:-1]
+        return f[0][None, :] + (ge[:, :C - 1] * d[None]).sum(dim=1)
+
+    cum_left = torch.cat([torch.zeros_like(cum[:1]), cum[:-1]], dim=0)
+    t_left = k * h[None, :]
+    e_left = sel(cum_left)
+    rate_h = torch.clamp(sel(cum) - e_left, min=1e-20)
+    t = t_left + (E - e_left) * (h[None, :] / rate_h)
+    return t, beyond, [sel(f) for f in fields]
+
+
+def _segment_events(vol: Volume, prof, seed, start, direction, tmax, e_last,
+                    idx, i: int, seg_len: int, salt: int) -> dict:
+    """One tracking segment's ``seg_len`` residual events for the lanes
+    ``idx``: t (S, n), beyond (S, n), the fine density, the control and
+    residual majorant at each event, e_new and rtot (n,).  ``prof`` is
+    None on the kernel path (K1 re-profiles), else the per-interval
+    (sigma, c, rcum, h, rtot) of every lane."""
+    if prof is None:
+        ev = pw_events(vol, start[idx], direction[idx], tmax[idx], seed[idx],
+                       e_last[idx], i, S=seg_len, salt=salt)
+        return dict(t=ev["t"], beyond=ev["t"] < 0.0,
+                    dens=_fine_density(vol, ev["lin"]), c_at=ev["c_at"],
+                    sres=ev["sres"], e_new=ev["e_new"], rtot=ev["rtot"])
+    sigma, c, rcum, h, rtot = prof
+    u = _indexed_draws_lead(seed[idx], i, seg_len, salt)
+    E = e_last[idx][None, :] + _cumsum0(-torch.log1p(-u))
+    t, beyond, (c_at, s_at) = _map_events(E, rcum[:, idx], h[idx],
+                                          (c[:, idx], sigma[:, idx]))
+    o, d = start[idx], direction[idx]
+    dens = get_density_xyz(vol, o[None, :, 0] + t * d[None, :, 0],
+                           o[None, :, 1] + t * d[None, :, 1],
+                           o[None, :, 2] + t * d[None, :, 2])
+    return dict(t=t, beyond=beyond, dens=dens, c_at=c_at,
+                sres=torch.clamp(s_at - c_at, min=1e-12), e_new=E[-1],
+                rtot=rtot[idx])
 
 
 def _ratio_rr(seed, i: int, trans, e_new, rtot):
@@ -94,10 +215,11 @@ def _ratio_rr(seed, i: int, trans, e_new, rtot):
 
 def ratio_track_pw(state, vol: Volume, start, end, max_steps: int = 128,
                    segment: int = 16, active=None,
-                   plan_lanes: int | None = None):
+                   plan_lanes: int | None = None, coarse: int = 32):
     """Residual ratio tracking with the piecewise control/majorant:
     T = exp(-int c) * E[prod over residual events (1 - (d - c)/(sigma - c))].
-    start/end (N, 3); returns (transmittance (N,), new_state)."""
+    start/end (N, 3); ``coarse`` profile intervals; returns
+    (transmittance (N,), new_state)."""
     seg_vec = end - start
     tmax = torch.linalg.vector_norm(seg_vec, dim=-1)
     direction = (seg_vec / torch.clamp(tmax, min=1e-12)[..., None]
@@ -106,12 +228,18 @@ def ratio_track_pw(state, vol: Volume, start, end, max_steps: int = 128,
         tmax = torch.where(active, tmax, 0.0)
     start = start.contiguous()
     seed, state = _track_seed(state)
-    prof = pw_profile(vol, start, direction, tmax, seed)
-    rtot = prof["rtot"]
+    if coarse == KERNEL_INTERVALS:
+        tot = pw_profile(vol, start, direction, tmax, seed)
+        rtot, ctot, prof = tot["rtot"], tot["ctot"], None
+    else:
+        sigma, c, ccum, rcum, h = _coarse_profile(vol, start, direction,
+                                                  tmax, coarse)
+        rtot, ctot = rcum[-1], ccum[-1]
+        prof = (sigma, c, rcum, h, rtot)
     e_last = torch.zeros_like(tmax)
     # the analytic control factor is folded in up front so the roulette
     # sees the full running transmittance
-    trans = torch.exp(-prof["ctot"])
+    trans = torch.exp(-ctot)
     small0 = (trans < RR_EPS) & (e_last < rtot)
     u0 = _indexed_draws_lead(seed, 0, 1, SALT_RR0)[0]
     survive0 = u0 * RR_EPS < trans
@@ -124,15 +252,13 @@ def ratio_track_pw(state, vol: Volume, start, end, max_steps: int = 128,
         idx = torch.nonzero(e_last < rtot).squeeze(1)
         if idx.numel() == 0:
             break
-        s_i = seed[idx]
-        ev = pw_events(vol, start[idx], direction[idx], tmax[idx], s_i,
-                       e_last[idx], i, S=seg_len, salt=SALT_RATIO)
-        dens = _fine_density(vol, ev["lin"])
+        ev = _segment_events(vol, prof, seed, start, direction, tmax, e_last,
+                             idx, i, seg_len, SALT_RATIO)
         factors = torch.where(
-            ev["t"] < 0.0, 1.0,
-            1.0 - torch.clamp(dens - ev["c_at"], min=0.0) / ev["sres"])
+            ev["beyond"], 1.0,
+            1.0 - torch.clamp(ev["dens"] - ev["c_at"], min=0.0) / ev["sres"])
         tr_i = trans[idx] * torch.prod(factors, dim=0)
-        tr_i, e_i = _ratio_rr(s_i, i, tr_i, ev["e_new"], ev["rtot"])
+        tr_i, e_i = _ratio_rr(seed[idx], i, tr_i, ev["e_new"], ev["rtot"])
         trans = trans.index_put((idx,), tr_i)
         e_last = e_last.index_put((idx,), e_i)
     return trans, state
@@ -140,21 +266,33 @@ def ratio_track_pw(state, vol: Volume, start, end, max_steps: int = 128,
 
 def delta_track_pw(state, vol: Volume, ro, rd, max_steps: int = 128,
                    segment: int = 16, active=None,
-                   plan_lanes: int | None = None):
+                   plan_lanes: int | None = None, coarse: int = 32):
     """Decomposition delta tracking to the box exit: the control stream's
-    first collision is analytic (K2), residual events are tracked (K1),
-    the earlier of the two is the collision.  Returns (pos, volume_exit,
-    new_state); non-collision lanes get a uniform fallback point."""
+    first collision is analytic, residual events are tracked, the earlier
+    of the two is the collision (K2 and K1 at ``coarse = 32``, else the
+    per-interval profile).  Returns (pos, volume_exit, new_state);
+    non-collision lanes get a uniform fallback point."""
     _, exit_pt, _ = find_entry_exit(vol, ro, rd)
     tmax = torch.linalg.vector_norm(exit_pt - ro, dim=-1)
     if active is not None:
         tmax = torch.where(active, tmax, 0.0)
     ro_c, rd_c = ro.contiguous(), rd.contiguous()
     seed, state = _track_seed(state)
-    prof = pw_profile(vol, ro_c, rd_c, tmax, seed, want_ctrl=True)
-    rtot = prof["rtot"]
-    ctrl_hit = prof["t_ctrl"] < 1.0e37
-    t_ctrl = torch.where(ctrl_hit, prof["t_ctrl"], torch.inf)
+    if coarse == KERNEL_INTERVALS:
+        tot = pw_profile(vol, ro_c, rd_c, tmax, seed, want_ctrl=True)
+        rtot, prof = tot["rtot"], None
+        ctrl_hit = tot["t_ctrl"] < 1.0e37
+        t_ctrl = torch.where(ctrl_hit, tot["t_ctrl"], torch.inf)
+    else:
+        sigma, c, ccum, rcum, h = _coarse_profile(vol, ro_c, rd_c, tmax,
+                                                  coarse)
+        rtot = rcum[-1]
+        prof = (sigma, c, rcum, h, rtot)
+        # the control stream's collision: one Exp(1) depth through ccum
+        e_ctrl = -torch.log1p(-_indexed_draws_lead(seed, 0, 1, SALT_CTRL)[0])
+        t_c, beyond_c, _ = _map_events(e_ctrl[None, :], ccum, h, ())
+        ctrl_hit = ~beyond_c[0] & (e_ctrl < ccum[-1])
+        t_ctrl = torch.where(ctrl_hit, t_c[0], torch.inf)
 
     # lanes with zero residual depth resolve analytically (crossed)
     empty = rtot <= 0.0
@@ -167,13 +305,11 @@ def delta_track_pw(state, vol: Volume, ro, rd, max_steps: int = 128,
         idx = torch.nonzero(~resolved).squeeze(1)
         if idx.numel() == 0:
             break
-        s_i = seed[idx]
-        ev = pw_events(vol, ro_c[idx], rd_c[idx], tmax[idx], s_i,
-                       e_last[idx], i, S=seg_len, salt=SALT_DELTA)
-        u2 = _indexed_draws_lead(s_i, i, seg_len, SALT_ACCEPT)
-        dens = _fine_density(vol, ev["lin"])
-        beyond = ev["t"] < 0.0
-        accept = ~beyond & (torch.clamp(dens - ev["c_at"], min=0.0)
+        ev = _segment_events(vol, prof, seed, ro_c, rd_c, tmax, e_last, idx,
+                             i, seg_len, SALT_DELTA)
+        u2 = _indexed_draws_lead(seed[idx], i, seg_len, SALT_ACCEPT)
+        beyond = ev["beyond"]
+        accept = ~beyond & (torch.clamp(ev["dens"] - ev["c_at"], min=0.0)
                             / ev["sres"] > u2)
         event = accept | beyond
         first = event & (torch.cumsum(event.to(torch.int32), 0) == 1)

@@ -6,7 +6,12 @@ with nearest filtering and a black border); the world box is centered at
 the origin with size ``normalize(extent) * 107.5``.  The macrocell
 majorant/control table is built in numpy (``_build_macro``) and packed as
 two conservatively rounded bf16 halves of one 32-bit word
-(``_pack_macro``); both are copied verbatim from the JAX package.
+(``_pack_macro``); both are copied verbatim from the JAX package.  The
+macrocell lookups go through kernel K6 (``macro_sigma`` /
+``macro_control`` on the float32 tables) and K5 (``macro_profile_xyz`` on
+the packed table).  Coordinates divide by the box size, as the JAX
+functions do (its frame passes ``sky_size`` as an array, so XLA does not
+rewrite the division into a reciprocal multiply).
 """
 
 from __future__ import annotations
@@ -16,6 +21,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops.macro_gather import small_table_lookup
+from .ops.table_gather import table_gather, unpack_bf16_pair
+
 MAX_RAY_DISTANCE = 100000.0
 WORLD_SCALE = 107.5
 MACRO_CELL = 8
@@ -23,11 +31,15 @@ MACRO_CELL = 8
 
 @dataclasses.dataclass(frozen=True)
 class Volume:
-    """``grid`` is the uint8 density indexed [x, y, z]; ``macro_packed``
-    holds bf16(majorant) << 16 | bf16(control) per 8^3 macrocell as int32
-    bit patterns.  Scalars are Python floats holding float32 values."""
+    """``grid`` is the uint8 density indexed [x, y, z]; ``macro`` and
+    ``macro_min`` are the float32 dilated-max (majorant) and eroded-min
+    (control) normalized densities per 8^3 macrocell; ``macro_packed``
+    holds bf16(majorant) << 16 | bf16(control) per macrocell as int32 bit
+    patterns.  Scalars are Python floats holding float32 values."""
 
     grid: torch.Tensor          # (X, Y, Z) uint8
+    macro: torch.Tensor         # (Mx*My*Mz,) float32
+    macro_min: torch.Tensor     # (Mx*My*Mz,) float32
     macro_packed: torch.Tensor  # (Mx*My*Mz,) int32
     sky_size: torch.Tensor      # (3,) float32
     sky_host: tuple             # the same three float32 values on the host
@@ -56,9 +68,12 @@ class Volume:
         extent = np.array(data.shape, np.float32)
         sky_size = (extent / np.linalg.norm(extent) * WORLD_SCALE).astype(
             np.float32)
-        packed = _pack_macro(*_build_macro(norm))
+        macro_max, macro_min = _build_macro(norm)
+        packed = _pack_macro(macro_max, macro_min)
         return Volume(
             grid=torch.as_tensor(grid, device=device),
+            macro=torch.as_tensor(macro_max, device=device),
+            macro_min=torch.as_tensor(macro_min, device=device),
             macro_packed=torch.as_tensor(packed.view(np.int32), device=device),
             sky_size=torch.as_tensor(sky_size, device=device),
             sky_host=tuple(float(v) for v in sky_size),
@@ -67,7 +82,8 @@ class Volume:
 
     def to(self, device) -> "Volume":
         return dataclasses.replace(
-            self, grid=self.grid.to(device),
+            self, grid=self.grid.to(device), macro=self.macro.to(device),
+            macro_min=self.macro_min.to(device),
             macro_packed=self.macro_packed.to(device),
             sky_size=self.sky_size.to(device))
 
@@ -92,6 +108,77 @@ def get_density_xyz(vol: Volume, px, py, pz) -> torch.Tensor:
     raw = vol.grid.reshape(-1)[ix * (Y * Z) + iy * Z + iz]
     val = raw.to(torch.float32) * (1.0 / 255.0)
     return torch.where(inside, val, 0.0) * vol.density_factor
+
+
+def _macro_index(vol: Volume, cx, cy, cz) -> torch.Tensor:
+    """Macrocell coordinates -> the clamped flat int32 cell index."""
+    mx, my, mz = vol.macro_dims
+    ix = torch.clamp(torch.floor(cx).to(torch.int32), 0, mx - 1)
+    iy = torch.clamp(torch.floor(cy).to(torch.int32), 0, my - 1)
+    iz = torch.clamp(torch.floor(cz).to(torch.int32), 0, mz - 1)
+    return ix * (my * mz) + iy * mz + iz
+
+
+def _macro_cells(vol: Volume, px, py, pz):
+    """Planar world coordinates -> macrocell coordinates."""
+    mx, my, mz = vol.macro_dims
+    return ((px / vol.sky_size[0] + 0.5) * mx,
+            (py / vol.sky_size[1] + 0.5) * my,
+            (pz / vol.sky_size[2] + 0.5) * mz)
+
+
+def _in_macro_box(vol: Volume, cx, cy, cz, margin: float):
+    """Macrocell coordinates inside the grid widened by ``margin`` cells."""
+    mx, my, mz = vol.macro_dims
+    return ((cx >= -margin) & (cx < mx + margin)
+            & (cy >= -margin) & (cy < my + margin)
+            & (cz >= -margin) & (cz < mz + margin))
+
+
+def _macro_lookup_xyz(vol: Volume, table, px, py, pz, margin: float):
+    """density_factor * table[cell] on planar coordinates, 0 beyond
+    ``margin`` cells outside the box (K6)."""
+    cells = _macro_cells(vol, px, py, pz)
+    val = small_table_lookup(table, _macro_index(vol, *cells))
+    return torch.where(_in_macro_box(vol, *cells, margin), val,
+                       0.0) * vol.density_factor
+
+
+def macro_sigma_xyz(vol: Volume, px, py, pz) -> torch.Tensor:
+    """Local majorant on planar coordinates: density_factor * dilated
+    macrocell max, with a one-cell margin outside the box (a sample just
+    outside must still dominate the in-box part of its interval)."""
+    return _macro_lookup_xyz(vol, vol.macro, px, py, pz, margin=1.0)
+
+
+def macro_control_xyz(vol: Volume, px, py, pz) -> torch.Tensor:
+    """Control density on planar coordinates: density_factor * eroded
+    macrocell min, strictly inside the box."""
+    return _macro_lookup_xyz(vol, vol.macro_min, px, py, pz, margin=0.0)
+
+
+def macro_sigma(vol: Volume, pos: torch.Tensor) -> torch.Tensor:
+    """macro_sigma_xyz on (..., 3) world positions."""
+    return macro_sigma_xyz(vol, *pos.unbind(-1))
+
+
+def macro_control(vol: Volume, pos: torch.Tensor) -> torch.Tensor:
+    """macro_control_xyz on (..., 3) world positions."""
+    return macro_control_xyz(vol, *pos.unbind(-1))
+
+
+def macro_profile_xyz(vol: Volume, px, py, pz):
+    """(majorant, control) on planar coordinates from ONE lookup of the
+    bf16-packed table (K5): the majorant with the one-cell outside margin,
+    the control strictly inside, as macro_sigma_xyz / macro_control_xyz
+    but at bf16 precision rounded conservatively."""
+    cells = _macro_cells(vol, px, py, pz)
+    sig, ctl = unpack_bf16_pair(
+        table_gather(vol.macro_packed, _macro_index(vol, *cells)))
+    ctl = torch.minimum(ctl, sig)
+    sig = torch.where(_in_macro_box(vol, *cells, 1.0), sig, 0.0)
+    ctl = torch.where(_in_macro_box(vol, *cells, 0.0), ctl, 0.0)
+    return sig * vol.density_factor, ctl * vol.density_factor
 
 
 def find_entry_exit(vol: Volume, ro: torch.Tensor, rd: torch.Tensor):

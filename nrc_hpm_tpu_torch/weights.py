@@ -1,7 +1,8 @@
 """Cache and ring-buffer state from the JAX package's layout.
 
 The JAX cache keeps ``{"encoding": {"hash_table": (P, 2)}, "mlp":
-{"layers": [(in, out), ...]}}`` as arrays; ``params_from_jax`` takes the
+{"layers": [(in, out), ...]}}`` as arrays (``"encoding": {}`` without a
+hash grid); ``params_from_jax`` takes the
 same tree as numpy arrays (for example ``jax.tree.map(np.asarray,
 state.ema_params)`` or a loaded checkpoint) and returns the port's
 float32 tensors in the same layout.  ``state_from_jax`` takes a whole
@@ -23,8 +24,10 @@ def _t(a, device, dtype=np.float32) -> torch.Tensor:
 
 
 def params_from_jax(ema_params_np: dict, device="cpu") -> dict:
-    return {"encoding": {"hash_table":
-                         _t(ema_params_np["encoding"]["hash_table"], device)},
+    """Any encoding tree: ``{"hash_table": ...}`` or ``{}`` (encodings
+    without parameters)."""
+    return {"encoding": {k: _t(v, device)
+                         for k, v in ema_params_np["encoding"].items()},
             "mlp": {"layers": [_t(w, device) for w in
                                ema_params_np["mlp"]["layers"]]}}
 

@@ -114,10 +114,15 @@ def test_cache_infer_matches_jax():
 
 
 def test_wrapper_rejects_other_devices_and_encodings():
-    with pytest.raises(NotImplementedError):
-        tenc.CompositeEncoding(EncodingConfig(pos_id=1))
-    with pytest.raises(NotImplementedError):
-        tenc.CompositeEncoding(EncodingConfig(dir_id=2))
+    """Every encoding id of the reference is taken (tests/
+    test_torch_encodings.py); other ids raise, and a grid the packed
+    table cannot hold is not ported."""
+    with pytest.raises(ValueError, match="invalid pos"):
+        tenc.CompositeEncoding(EncodingConfig(pos_id=4))
+    with pytest.raises(ValueError, match="invalid dir"):
+        tenc.CompositeEncoding(EncodingConfig(dir_id=3))
+    with pytest.raises(NotImplementedError, match="2 features"):
+        tenc.CompositeEncoding(EncodingConfig(n_features_per_level=4))
     spec = tenc.HashGridSpec(n_levels=2, log2_table_size=8)
     with pytest.raises(ValueError, match="unsupported device"):
         fem.fused_encode_mlp_infer(

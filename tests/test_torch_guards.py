@@ -117,3 +117,127 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+def test_mlp_and_lookup_kernels_on_cpu_launch_nothing():
+    """K4, K5 and K6 take their plain versions for CPU tensors."""
+    from nrc_hpm_tpu_torch.ops import fused_mlp as fm
+    from nrc_hpm_tpu_torch.ops import macro_gather as mg
+    from nrc_hpm_tpu_torch.ops import table_gather as tg
+
+    wrappers = (fm.fused_mlp_infer, tg.table_gather, mg.small_table_lookup)
+    before = [w.launches for w in wrappers]
+    params = {"layers": [torch.randn(80, 64), torch.randn(64, 64),
+                         torch.randn(64, 3)]}
+    feats = torch.rand(32, 80)
+    assert torch.equal(fm.fused_mlp_infer(params, feats),
+                       fm.fused_mlp_plain(params, feats))
+    table = torch.rand(3520)
+    idx = torch.randint(0, 3520, (65, 16), dtype=torch.int32)
+    assert torch.equal(tg.table_gather(table, idx), table[idx])
+    assert torch.equal(mg.small_table_lookup(table, idx), table[idx])
+    assert [w.launches for w in wrappers] == before == [0, 0, 0]
+
+
+def test_mlp_and_lookup_kernels_refuse_other_devices():
+    from nrc_hpm_tpu_torch.ops import fused_mlp as fm
+    from nrc_hpm_tpu_torch.ops import macro_gather as mg
+    from nrc_hpm_tpu_torch.ops import table_gather as tg
+
+    layers = [torch.zeros(16, 32, device="meta"),
+              torch.zeros(32, 3, device="meta")]
+    with pytest.raises(ValueError, match="unsupported device"):
+        fm.fused_mlp_infer({"layers": layers},
+                           torch.zeros(4, 16, device="meta"))
+    table = torch.zeros(64, device="meta")
+    idx = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tg.table_gather(table, idx)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mg.small_table_lookup(table, idx)
+
+
+@pytest.mark.parametrize("fn", ["table_gather", "small_table_lookup"])
+def test_lookups_count_no_launch_for_empty_indices(monkeypatch, fn):
+    """On the card an empty idx launches nothing, so it counts nothing."""
+    from nrc_hpm_tpu_torch.ops import macro_gather as mg
+    from nrc_hpm_tpu_torch.ops import table_gather as tg
+
+    def no_library():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(_build, "on_card", lambda name, device: True)
+    monkeypatch.setattr(tg, "_lib", no_library)
+    wrapper = {"table_gather": tg.table_gather,
+               "small_table_lookup": mg.small_table_lookup}[fn]
+    before = wrapper.launches
+    out = wrapper(torch.rand(64), torch.zeros((65, 0), dtype=torch.int32))
+    assert out.shape == (65, 0) and out.dtype == torch.float32
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("case", ["feats-f64", "feats-1d", "chain",
+                                  "layer-f64", "out-dim", "one-layer"])
+def test_fused_mlp_rejects_bad_inputs(case):
+    from nrc_hpm_tpu_torch.ops import fused_mlp as fm
+
+    layers = [torch.randn(16, 32), torch.randn(32, 32), torch.randn(32, 3)]
+    feats, out_dim = torch.rand(8, 16), 3
+    if case == "feats-f64":
+        feats = feats.double()
+    elif case == "feats-1d":
+        feats = feats.reshape(-1)
+    elif case == "chain":
+        layers[1] = torch.randn(48, 32)
+    elif case == "layer-f64":
+        layers[2] = layers[2].double()
+    elif case == "out-dim":
+        out_dim = 4
+    else:
+        layers = layers[:1]
+    with pytest.raises(ValueError, match="fused_mlp_infer"):
+        fm.fused_mlp_infer({"layers": layers}, feats, out_dim)
+
+
+@pytest.mark.parametrize("layers,in_dim,what", [
+    ([(16, 48), (48, 48), (48, 3)], 16, "hidden widths"),
+    ([(24, 64), (64, 3)], 24, "multiple of 16"),
+    ([(144, 64), (64, 3)], 144, "multiple of 16"),
+    ([(16, 64), (64, 9)], 16, "outputs"),
+    ([(128, 128)] + [(128, 128)] * 7 + [(128, 3)], 128, "shared memory"),
+])
+def test_fused_mlp_kernel_refuses_shapes_it_does_not_take(layers, in_dim,
+                                                          what):
+    """Shapes the CUDA kernel does not take raise NotImplementedError on
+    the card; the wrapper never hands them to the plain version there."""
+    from nrc_hpm_tpu_torch.ops import fused_mlp as fm
+
+    ws = [torch.zeros(a, b) for a, b in layers]
+    with pytest.raises(NotImplementedError, match=what):
+        fm._check_kernel(ws, torch.zeros(4, in_dim), 3)
+
+
+@pytest.mark.parametrize("fn,table,idx,what", [
+    ("table_gather", torch.zeros(64, dtype=torch.float64),
+     torch.zeros(4, dtype=torch.int32), "table must be"),
+    ("table_gather", torch.zeros(65537), torch.zeros(4, dtype=torch.int32),
+     "table must be"),
+    ("table_gather", torch.zeros(8, 8), torch.zeros(4, dtype=torch.int32),
+     "table must be"),
+    ("table_gather", torch.zeros(64), torch.zeros(4, dtype=torch.int64),
+     "idx must be int32"),
+    ("small_table_lookup", torch.zeros(64, dtype=torch.int32),
+     torch.zeros(4, dtype=torch.int32), "table must be"),
+    ("small_table_lookup", torch.zeros(8193),
+     torch.zeros(4, dtype=torch.int32), "table must be"),
+    ("small_table_lookup", torch.zeros(64), torch.zeros(4),
+     "idx must be int32"),
+])
+def test_lookups_reject_bad_inputs(fn, table, idx, what):
+    from nrc_hpm_tpu_torch.ops import macro_gather as mg
+    from nrc_hpm_tpu_torch.ops import table_gather as tg
+
+    wrapper = {"table_gather": tg.table_gather,
+               "small_table_lookup": mg.small_table_lookup}[fn]
+    with pytest.raises(ValueError, match=what):
+        wrapper(table, idx)
