@@ -6,12 +6,18 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nrc_hpm_tpu_torch/csrc`` (one nvcc per
-source, in parallel), checks each against its plain PyTorch version at the
-main paths' shapes, then drives the NRC frame on a procedural cloud with
-seeded random weights: three frozen-cache frames at 1920x1080 with the
-default 2^19 hash grid and 64x6 MLP; five online-training frames (4 Adam
-steps of 2^14 samples, 32-bounce train paths) at the same configuration;
-one online frame at ``AppConfig.tpu_tuned()`` (2^12 tables, the packed
+source, in parallel; ptxas's registers and spills per kernel, K1 must not
+spill; the tensor-core instructions in K3's SASS, which must exist),
+checks each kernel against its plain PyTorch version at the main paths'
+shapes and times it by its device time in torch.profiler beside its bound
+(K1/K2 also at 65,536 and 1,024 lanes), then drives the NRC frame on a
+procedural cloud with seeded random weights: three frozen-cache frames at
+1920x1080 with the default 2^19 hash grid and 64x6 MLP; five
+online-training frames (4 Adam steps of 2^14 samples, 32-bounce train
+paths) at the same configuration, then one more timed by stage and one
+under torch.profiler (each kernel's launches and device ms, the device's
+busy share; K3 timed on that frame's own inference input); two online
+frames at ``AppConfig.tpu_tuned()`` (2^12 tables, the packed
 training encode).  Then the other input encodings (path A): two frozen
 and three online 1080p frames at Frequency + TriangleWave (the split
 encode and the fused MLP kernel K4), two frozen frames at hash grid +
@@ -43,6 +49,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_LANES = 1 << 20            # K1/K2 lanes: camera rays through the cloud
+# K1/K2 are also timed at the train loop's first bounce (65,536 lanes) and
+# at a late bounce (1,024 lanes)
+PW_TIME_LANES = (N_LANES, 1 << 16, 1 << 10)
 N_X5 = 1 << 20               # K3 samples
 N_TRAIN = 1 << 14            # K7: one train batch ...
 N_TIME = 1 << 20             # ... and the timing size
@@ -113,6 +122,26 @@ SAME_INPUT_TOL = dict(rtol=1e-3, atol=1e-4, share=0.99)
 # terminal point within 1e-3) agree on >= 99%: an event depth an ulp apart
 # may pick another fine cell, as the CPU tests against JAX allow.
 COARSE_LANE_SHARE = 0.99
+# NVIDIA H100 SXM peaks (data sheet, dense): device memory bytes/s, bf16
+# tensor-core and float32 (outside the tensor cores) operations/s
+HBM_BYTES_S = 3.35e12
+BF16_OPS_S = 989e12
+F32_OPS_S = 67e12
+# float32 operations per lane counted from csrc/pw_kernels.cu: one macro
+# lookup (box coordinates, bounds tests, clamp, index, decode), one
+# profile interval (point, max/min, two running sums), one event (hash,
+# log1p, walk steps, inversion, fine cell); and per (sample, level) of the
+# hash-grid encode (cell, 8 corner weights and indices, 16 products/sums)
+LOOKUP_OPS, INTERVAL_OPS, EVENT_OPS, LEVEL_OPS = 30, 14, 60, 150
+# the kernel of each wrapper, by the name the profiler shows
+KERNEL_NAMES = dict(pw_events="pw_events_kernel",
+                    pw_profile="pw_profile_kernel",
+                    fused_encode_mlp="fused_encode_mlp_kernel",
+                    hash_grid_train_fwd="hash_grid_train_fwd_kernel",
+                    hash_grid_train_bwd="hash_grid_train_bwd_kernel",
+                    fused_mlp="fused_mlp_kernel",
+                    table_gather="table_gather_kernel",
+                    small_table_lookup="small_table_lookup_kernel")
 
 
 def gpu_line() -> str:
@@ -135,6 +164,127 @@ def time_ms(torch, fn) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def sm_clock() -> str:
+    """The card's SM and memory clocks now (the SM clock falls under a
+    heavy load at the power limit, so they go beside every time)."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return res.stdout.strip() or "unknown"
+
+
+def device_rows(torch, prof) -> list:
+    """(name, self device ms, count) of the kernels and copies a profile
+    saw on the card (CPU operator rows, which carry their kernels' time
+    too, left out)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(r.key, r.self_device_time_total / 1e3, r.count)
+            for r in prof.key_averages()
+            if r.device_type == cuda and r.self_device_time_total > 0]
+
+
+def busy_ms(torch, prof) -> float:
+    """Milliseconds in which at least one device operation ran: the union
+    of their intervals."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def device_ms(torch, fn, name: str, reps: int = REPS) -> float:
+    """Milliseconds of device time per call of ``fn`` spent in the kernel
+    ``KERNEL_NAMES[name]``, from torch.profiler over ``reps`` calls after a
+    warm-up (the kernel alone: no launch gaps, no set-up kernels of the
+    wrapper)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = sum(t for key, t, _ in device_rows(torch, prof)
+             if KERNEL_NAMES[name] in key)
+    if ms <= 0:
+        raise AssertionError(f"{name}: the profiler saw no device time")
+    return ms / reps
+
+
+def bound(n_bytes: float, bf16_ops: float = 0.0, f32_ops: float = 0.0):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes over device memory's rate and the operations over
+    their type's peak rate."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_S
+    t_ops = 1e3 * max(bf16_ops / BF16_OPS_S, f32_ops / F32_OPS_S)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pw_bound(n: int, n_macro: int, S: int = 0):
+    """K1 (S events) or K2 (S = 0: the control draw) on n lanes: per lane
+    the 32 bytes of start/direction/tmax/seed read, K1's e_last read and
+    16 bytes per event plus e_new/rtot/ctot written, K2's rtot/ctot/t_ctrl
+    written; the macro table read once."""
+    per_lane = 32 + (4 + 16 * S + 12 if S else 12)
+    ops = 33 * LOOKUP_OPS + 32 * INTERVAL_OPS + max(S, 1) * EVENT_OPS
+    return bound(n * per_lane + 4 * n_macro, f32_ops=n * ops)
+
+
+def mlp_ops(layers) -> int:
+    """Operations per sample of a bias-free MLP (a multiply and an add per
+    weight)."""
+    return sum(2 * w.shape[0] * w.shape[1] for w in layers)
+
+
+def gpu_sass_count(so, opcode: str) -> int:
+    """Instructions of ``opcode`` in a library's SASS (cuobjdump of the CUDA
+    toolkit, or the copy Triton bundles)."""
+    import importlib.util
+    import shutil
+
+    cands = [shutil.which("cuobjdump"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.submodule_search_locations:
+        cands.append(os.path.join(spec.submodule_search_locations[0],
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    tool = next((c for c in cands if c and os.path.exists(c)), None)
+    if tool is None:
+        raise AssertionError("cuobjdump not found: cannot read the SASS")
+    res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                         text=True, timeout=300, check=True)
+    return sum(1 for line in res.stdout.splitlines()
+               if re.search(rf"\b{opcode}\b", line))
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from an ``nvcc -Xptxas -v`` log."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)),) + spills
+            spills = (0, 0)
+    return out
 
 
 def compare(torch, name, got: dict, want: dict, rtol, atol, max_bad,
@@ -169,9 +319,11 @@ def compare(torch, name, got: dict, want: dict, rtol, atol, max_bad,
     return worst
 
 
-def build() -> None:
-    """Build every library, one nvcc each, all started together (timed),
-    and print ptxas's register/spill lines."""
+def build() -> dict:
+    """Build every library, one nvcc each, all started together (timed);
+    print ptxas's registers and spills for each kernel and the tensor-core
+    (HMMA) instructions of K3's library.  K1 must not spill and K3 must run
+    on the tensor cores.  Returns the library path of each source."""
     from nrc_hpm_tpu_torch.ops import (_build, fused_encode_mlp, fused_mlp,
                                        hash_grid_train, pw_kernels,
                                        table_gather)
@@ -188,60 +340,105 @@ def build() -> None:
 
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         done = list(pool.map(run, jobs))
-    sos = [so for so, _ in done]
     each = ", ".join(f"{' '.join((job[0],) + job[1])} {s:.1f} s"
                      for job, (_, s) in zip(jobs, done))
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, "
           f"{len(jobs)} builds in parallel; done after: {each})")
-    for so in sos:
+    regs = {}
+    for so, _ in done:
         log = so.with_suffix(".log")
-        for line in log.read_text().splitlines() if log.exists() else []:
-            if re.search(r"registers|spill", line):
-                print(f"ptxas {so.name}: {line.strip()}")
+        for kern, (n_regs, st, ld) in ptxas_kernels(
+                log.read_text() if log.exists() else "").items():
+            short = next((k for k in KERNEL_NAMES.values() if k in kern),
+                         kern)
+            regs[short] = (n_regs, st, ld)
+            print(f"ptxas {so.name} {short}: {n_regs} registers, spill "
+                  f"stores {st} B, spill loads {ld} B")
+    if regs.get("pw_events_kernel", (0, 1, 1))[1:] != (0, 0):
+        raise AssertionError("pw_events_kernel spills (or was not found in "
+                             "the ptxas log)")
+    libs = {job[0]: so for job, (so, _) in zip(jobs, done)}
+    hmma = gpu_sass_count(libs[fused_encode_mlp._LIB], "HMMA")
+    print(f"SASS of {libs[fused_encode_mlp._LIB].name}: {hmma} HMMA "
+          f"instructions (tensor cores)")
+    if hmma <= 0:
+        raise AssertionError("fused_encode_mlp has no HMMA instruction")
+    return libs
 
 
-def kernel_row(name, source, replaces, err, ms, plain_ms) -> dict:
-    print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+def kernel_row(name, source, replaces, err, ms, plain_ms, bnd,
+               library_ms=None) -> dict:
+    bound_ms, bound_by = bnd
+    lib = "" if library_ms is None else f", library call {library_ms:.4f} ms"
+    print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}){lib}, clocks {sm_clock()}")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
-def kernel_phase(torch, dev, vol, cfg) -> list:
+def camera_lanes(torch, dev, vol, cfg, gen):
+    """K1/K2's lanes: N_LANES random camera rays of the reference camera
+    clipped to the volume's box (start, direction, tmax), random seeds and
+    a zero event depth."""
     from nrc_hpm_tpu_torch.camera import Camera, pixel_rays
-    from nrc_hpm_tpu_torch.models.nrc.cache import NeuralRadianceCache
-    from nrc_hpm_tpu_torch.models.nrc.encoding import pack_table_bf16
-    from nrc_hpm_tpu_torch.ops import fused_encode_mlp as fem
-    from nrc_hpm_tpu_torch.ops import hash_grid_train as hgt
-    from nrc_hpm_tpu_torch.ops import pw_kernels as pk
     from nrc_hpm_tpu_torch.volume import find_entry_exit
 
-    gen = torch.Generator().manual_seed(1)
     cam = Camera.reference_camera(device=dev)
     ro, rd, _ = pixel_rays(cam, cfg.render_width, cfg.render_height)
     rd = rd.reshape(-1, 3)
     pick = torch.randperm(rd.shape[0], generator=gen)[:N_LANES].to(dev)
     rd = rd[pick].contiguous()
     entry, exit_, hit = find_entry_exit(vol, ro.expand_as(rd), rd)
-    start = entry.contiguous()
     tmax = torch.where(hit, torch.linalg.vector_norm(exit_ - entry, dim=-1),
                        0.0)
     seed = torch.randint(-2**31, 2**31 - 1, (N_LANES,), generator=gen,
                          dtype=torch.int32).to(dev)
-    e_last = torch.zeros(N_LANES, device=dev)
     print(f"K1/K2 lanes: {N_LANES} camera rays, {int(hit.sum())} hit the box")
+    return (entry.contiguous(), rd, tmax, seed,
+            torch.zeros(N_LANES, device=dev))
+
+
+def k3_inputs(torch, dev, cfg, gen):
+    """K3's arguments at ``cfg``: a unit-scale packed table (it exercises
+    the gathers more than tcnn's 1e-4 init), the seeded MLP, N_X5 random
+    inputs with theta spanning [-0.5, 1.5], the grid spec."""
+    from nrc_hpm_tpu_torch.models.nrc.cache import NeuralRadianceCache
+    from nrc_hpm_tpu_torch.models.nrc.encoding import pack_table_bf16
+
+    cache = NeuralRadianceCache(cfg)
+    spec = cache.encoding.grid_spec
+    layers = cache.init_state(gen, dev).ema_params["mlp"]["layers"]
+    table = (torch.rand((spec.total_params, 2), generator=gen) * 2 - 1)
+    x5 = torch.rand((N_X5, 5), generator=gen).to(dev)
+    x5[:, 3] = x5[:, 3] * 2.0 - 0.5
+    return pack_table_bf16(table).to(dev), layers, x5, spec
+
+
+def kernel_phase(torch, dev, vol, cfg) -> list:
+    from nrc_hpm_tpu_torch.config import AppConfig
+    from nrc_hpm_tpu_torch.ops import fused_encode_mlp as fem
+    from nrc_hpm_tpu_torch.ops import hash_grid_train as hgt
+    from nrc_hpm_tpu_torch.ops import pw_kernels as pk
+
+    gen = torch.Generator().manual_seed(1)
+    start, rd, tmax, seed, e_last = camera_lanes(torch, dev, vol, cfg, gen)
     rows = []
 
     def row(*args):
         rows.append(kernel_row(*args))
 
     src_pw = "nrc_hpm_tpu_torch/csrc/pw_kernels.cu"
+    n_macro = vol.macro_packed.numel()
     args = (vol, start, rd, tmax, seed)
     err = compare(torch, "pw_profile",
                   pk.pw_profile(*args, want_ctrl=True),
                   pk.pw_profile_plain(*args, want_ctrl=True), **PW_TOL)
+    pw_ms = pw_times(torch, pk, args, e_last)
     row("pw_profile", src_pw, "nrc_hpm_tpu/ops/pw_kernels.py:231", err,
-        time_ms(torch, lambda: pk.pw_profile(*args, want_ctrl=True)),
-        time_ms(torch, lambda: pk.pw_profile_plain(*args, want_ctrl=True)))
+        pw_ms[("pw_profile", N_LANES)],
+        time_ms(torch, lambda: pk.pw_profile_plain(*args, want_ctrl=True)),
+        pw_bound(N_LANES, n_macro))
     err = 0.0
     for salt in (pk.SALT_RATIO, pk.SALT_DELTA):
         err = max(err, compare(
@@ -249,26 +446,25 @@ def kernel_phase(torch, dev, vol, cfg) -> list:
             pk.pw_events(*args, e_last, 0, S=16, salt=salt),
             pk.pw_events_plain(*args, e_last, 0, S=16, salt=salt), **PW_TOL))
     row("pw_events", src_pw, "nrc_hpm_tpu/ops/pw_kernels.py:78", err,
-        time_ms(torch, lambda: pk.pw_events(*args, e_last, 0, S=16)),
-        time_ms(torch, lambda: pk.pw_events_plain(*args, e_last, 0, S=16)))
+        pw_ms[("pw_events", N_LANES)],
+        time_ms(torch, lambda: pk.pw_events_plain(*args, e_last, 0, S=16)),
+        pw_bound(N_LANES, n_macro, 16))
 
-    cache = NeuralRadianceCache(cfg)
-    spec = cache.encoding.grid_spec
-    nrc = cache.init_state(gen, dev)
-    # a table of unit scale exercises the gathers more than tcnn's 1e-4 init
-    table = (torch.rand((spec.total_params, 2), generator=gen) * 2 - 1)
-    packed = pack_table_bf16(table).to(dev)
-    layers = nrc.ema_params["mlp"]["layers"]
-    x5 = torch.rand((N_X5, 5), generator=gen).to(dev)
-    x5[:, 3] = x5[:, 3] * 2.0 - 0.5     # theta spans [-0.5, 1.5]
-    fargs = (packed, layers, x5, spec)
+    fargs = k3_inputs(torch, dev, cfg, gen)
+    packed, layers, x5, spec = fargs
     err = compare(torch, "fused_encode_mlp",
                   dict(out=fem.fused_encode_mlp_infer(*fargs)),
                   dict(out=fem.fused_encode_mlp_plain(*fargs)), **K3_TOL)
     row("fused_encode_mlp", "nrc_hpm_tpu_torch/csrc/fused_encode_mlp.cu",
         "nrc_hpm_tpu/ops/fused_encode_mlp.py:66", err,
-        time_ms(torch, lambda: fem.fused_encode_mlp_infer(*fargs)),
-        time_ms(torch, lambda: fem.fused_encode_mlp_plain(*fargs)))
+        k3_ms(torch, fem, fargs),
+        time_ms(torch, lambda: fem.fused_encode_mlp_plain(*fargs)),
+        k3_bound(N_X5, spec, layers))
+    # the same work on the tpu_tuned 2^12 table (256 KB, L2-resident): what
+    # the 2^19 table's size costs the gathers
+    k3_ms(torch, fem, k3_inputs(torch, dev, AppConfig.tpu_tuned(),
+                                torch.Generator().manual_seed(2)),
+          " at the 2^12 table")
     # hash grid + another direction encoding infers through K7's packed
     # forward at the default 2^19 table (then K4)
     x = x5[:, :3].contiguous()
@@ -279,6 +475,49 @@ def kernel_phase(torch, dev, vol, cfg) -> list:
     rows += train_encode_phase(torch, dev, cfg, gen)
     rows += mlp_and_lookup_kernels(torch, dev, vol, cfg, gen)
     return rows
+
+
+def pw_times(torch, pk, args, e_last) -> dict:
+    """K1 (S = 16) and K2 (with the control draw) device times on the
+    first m of the lanes, m in PW_TIME_LANES."""
+    out = {}
+    n_macro = args[0].macro_packed.numel()
+    for m in PW_TIME_LANES:
+        sub = (args[0],) + tuple(a[:m] for a in args[1:])
+        for name, fn, bnd in (
+                ("pw_events", lambda: pk.pw_events(*sub, e_last[:m], 0, S=16),
+                 pw_bound(m, n_macro, 16)),
+                ("pw_profile", lambda: pk.pw_profile(*sub, want_ctrl=True),
+                 pw_bound(m, n_macro))):
+            out[(name, m)] = device_ms(torch, fn, name)
+            print(f"{name} {m} lanes: kernel {out[(name, m)]:.4f} ms "
+                  f"(device), wrapper call {time_ms(torch, fn):.4f} ms, "
+                  f"bound {bnd[0]:.4f} ms ({bnd[1]}), clocks {sm_clock()}")
+    return out
+
+
+def k3_bound(n: int, spec, layers):
+    """K3 on n samples: x5 read and the outputs written, the packed table
+    and the weights read once; the MLP's bf16 products and the encode's
+    float32 work."""
+    out_dim = layers[-1].shape[1]
+    n_bytes = (n * (20 + 4 * out_dim) + 4 * spec.total_params
+               + 2 * sum(w.numel() for w in layers))
+    return bound(n_bytes, bf16_ops=n * mlp_ops(layers),
+                 f32_ops=n * spec.n_levels * LEVEL_OPS)
+
+
+def k3_ms(torch, fem, fargs, label: str = "") -> float:
+    """K3's device time at fargs' sample count (printed beside its wrapper
+    call, which also lays out the weights, and its bound)."""
+    ms = device_ms(torch, lambda: fem.fused_encode_mlp_infer(*fargs),
+                   "fused_encode_mlp")
+    bnd = k3_bound(fargs[2].shape[0], fargs[3], fargs[1])
+    wrapper = time_ms(torch, lambda: fem.fused_encode_mlp_infer(*fargs))
+    print(f"fused_encode_mlp {fargs[2].shape[0]} samples{label}: kernel "
+          f"{ms:.4f} ms (device), wrapper call {wrapper:.4f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}), clocks {sm_clock()}")
+    return ms
 
 
 def mlp_and_lookup_kernels(torch, dev, vol, cfg, gen) -> list:
@@ -305,10 +544,15 @@ def mlp_and_lookup_kernels(torch, dev, vol, cfg, gen) -> list:
     err = compare(torch, "fused_mlp",
                   dict(out=fm.fused_mlp_infer(mlp, feats)),
                   dict(out=fm.fused_mlp_plain(mlp, feats)), **K4_TOL)
+    layers = mlp["layers"]
     rows.append(kernel_row(
         "fused_mlp", src, "nrc_hpm_tpu/ops/fused_mlp.py:37", err,
-        time_ms(torch, lambda: fm.fused_mlp_infer(mlp, feats)),
-        time_ms(torch, lambda: fm.fused_mlp_plain(mlp, feats))))
+        device_ms(torch, lambda: fm.fused_mlp_infer(mlp, feats),
+                  "fused_mlp"),
+        time_ms(torch, lambda: fm.fused_mlp_plain(mlp, feats)),
+        bound(feats.numel() * 4 + N_K4 * 4 * layers[-1].shape[1]
+              + 2 * sum(w.numel() for w in layers),
+              bf16_ops=N_K4 * mlp_ops(layers))))
     # the other widths the kernel is built for, once each, at 2^16 samples
     for width in fm.WIDTHS:
         if width == cfg.nn_width:
@@ -329,10 +573,14 @@ def mlp_and_lookup_kernels(torch, dev, vol, cfg, gen) -> list:
     err = compare(torch, f"table_gather ({n_cells} words)",
                   dict(out=tg.table_gather(table, idx)),
                   dict(out=tg.table_gather_plain(table, idx)), **BITWISE)
+    # indices read and words written once each, the table read once
+    lookup_bound = bound(8 * idx.numel() + 4 * n_cells)
     rows.append(kernel_row(
         "table_gather", src, "nrc_hpm_tpu/ops/table_gather.py:40", err,
-        time_ms(torch, lambda: tg.table_gather(table, idx)),
-        time_ms(torch, lambda: tg.table_gather_plain(table, idx))))
+        device_ms(torch, lambda: tg.table_gather(table, idx),
+                  "table_gather"),
+        time_ms(torch, lambda: tg.table_gather_plain(table, idx)),
+        lookup_bound, library_ms=time_ms(torch, lambda: table[idx])))
     # float32 words compared as their bits
     err = max(compare(torch, f"small_table_lookup {key} bits",
                       dict(out=mg.small_table_lookup(
@@ -343,8 +591,10 @@ def mlp_and_lookup_kernels(torch, dev, vol, cfg, gen) -> list:
               for key in ("macro", "macro_min"))
     rows.append(kernel_row(
         "small_table_lookup", src, "nrc_hpm_tpu/ops/macro_gather.py:30", err,
-        time_ms(torch, lambda: mg.small_table_lookup(vol.macro, idx)),
-        time_ms(torch, lambda: mg.small_table_lookup_plain(vol.macro, idx))))
+        device_ms(torch, lambda: mg.small_table_lookup(vol.macro, idx),
+                  "small_table_lookup"),
+        time_ms(torch, lambda: mg.small_table_lookup_plain(vol.macro, idx)),
+        lookup_bound, library_ms=time_ms(torch, lambda: vol.macro[idx])))
     return rows
 
 
@@ -395,16 +645,26 @@ def train_encode_phase(torch, dev, cfg, gen) -> list:
                      hgt.hash_grid_train_fwd_plain, fargs),
                     ("hash_grid_train_bwd", hgt.hash_grid_train_bwd,
                      hgt.hash_grid_train_bwd_plain, bargs)):
-                ms = time_ms(torch, lambda: fn(*args))
+                ms = device_ms(torch, lambda: fn(*args), name)
                 plain_ms = time_ms(torch, lambda: plain(*args))
-                print(f"{name} {tag} n={n}: kernel {ms:.3f} ms, plain "
-                      f"{plain_ms:.3f} ms")
-                times[(name, packed, n)] = (ms, plain_ms)
-    return [dict(name=name, route="cuda", source=src, replaces=replaces,
-                 max_abs_err=errs[name],
-                 ms=times[(name, False, N_TIME)][0],
-                 plain_ms=times[(name, False, N_TIME)][1])
-            for name in ("hash_grid_train_fwd", "hash_grid_train_bwd")]
+                # x and the (N, L, 2) features or their gradient once; the
+                # table read (forward) or its gradient written (backward)
+                bnd = bound(12 * n + 8 * n * spec.n_levels
+                            + (4 if packed and name.endswith("fwd") else 8)
+                            * spec.total_params,
+                            f32_ops=n * spec.n_levels * LEVEL_OPS)
+                print(f"{name} {tag} n={n}: kernel {ms:.4f} ms (device), "
+                      f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+                      f"({bnd[1]})")
+                times[(name, packed, n)] = (ms, plain_ms, bnd)
+    rows = []
+    for name in ("hash_grid_train_fwd", "hash_grid_train_bwd"):
+        ms, plain_ms, bnd = times[(name, False, N_TIME)]
+        rows.append(dict(name=name, route="cuda", source=src,
+                         replaces=replaces, max_abs_err=errs[name], ms=ms,
+                         plain_ms=plain_ms, bound_ms=bnd[0],
+                         bound_by=bnd[1], library_ms=None))
+    return rows
 
 
 def wrappers() -> dict:
@@ -533,7 +793,7 @@ def online_phase(torch, dev, vol, cfg, gpu, frames: int, label: str,
           f"first frame {1e3 * times[0]:.1f} ms, loss {loss:.4g}, "
           f"{state.nrc.step} steps, ring head {head} tail {tail}, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {gpu}")
-    return launches, r, state, cam
+    return launches, r, state, cam, ms
 
 
 def split_frame(torch, r, state, cam, gpu) -> None:
@@ -570,6 +830,64 @@ def split_frame(torch, r, state, cam, gpu) -> None:
           f"{1e3 * spent['trace_fixed']:.1f} ms + train_frame "
           f"{1e3 * spent['train_frame']:.1f} ms + the rest (primary, "
           f"inference, train rays, ring) {1e3 * rest:.1f} ms, on {gpu}")
+
+
+def profile_frame(torch, r, state, cam, gpu, frame_ms: float) -> None:
+    """torch.profiler over one online frame: each kernel's launches (the
+    wrappers' counts) and device ms in the frame, the device's busy share
+    (its device time over the profiled frame's host time, and over an
+    unprofiled frame's ``frame_ms``); then K3 timed on the frame's own
+    inference input, its scattered samples."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nrc_hpm_tpu_torch.models.nrc.encoding import pack_table_bf16
+    from nrc_hpm_tpu_torch.ops import fused_encode_mlp as fem
+
+    seen = []
+    infer = r.cache.infer
+
+    def record(st, x5):
+        seen.append((st, x5))
+        return infer(st, x5)
+
+    r.cache.infer = record
+    try:
+        zero_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            r.step(state, cam)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        launches = read_launches()
+    finally:
+        del r.cache.infer
+    ops = device_rows(torch, prof)
+    busy = busy_ms(torch, prof)
+    print(f"profiled online frame: {wall_ms:.1f} ms under the profiler, "
+          f"{sum(c for _, _, c in ops)} device operations, "
+          f"{sum(t for _, t, _ in ops):.3f} ms of device time, busy "
+          f"{busy:.3f} ms: {busy / wall_ms:.4f} of the profiled frame, "
+          f"{busy / frame_ms:.4f} of an unprofiled one ({frame_ms:.1f} ms), "
+          f"on {gpu}")
+    for name, kernel in KERNEL_NAMES.items():
+        ms = sum(t for key, t, _ in ops if kernel in key)
+        calls = sum(c for key, _, c in ops if kernel in key)
+        print(f"profiled online frame {name}: {launches[name]} launches "
+              f"({calls} in the trace), {ms:.4f} ms of device time, "
+              f"{ms / max(busy, 1e-9):.4f} of the frame's")
+    top = sorted(ops, key=lambda o: -o[1])[:8]
+    print("profiled online frame, largest device operations: "
+          + "; ".join(f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in top))
+    if len(seen) != 1:
+        raise AssertionError(f"{len(seen)} inference calls in the frame")
+    st, x5 = seen[0]
+    ema = st.ema_params
+    spec = r.cache.encoding.grid_spec
+    print(f"frame's inference input: {x5.shape[0]} scattered samples")
+    k3_ms(torch, fem, (pack_table_bf16(ema["encoding"]["hash_table"]),
+                       ema["mlp"]["layers"], x5.contiguous(), spec))
 
 
 def small_frame_check(torch, dev, vol, cfg) -> None:
@@ -871,10 +1189,11 @@ def main() -> int:
     size = f"{cfg.render_width}x{cfg.render_height}"
     frame_phase(torch, dev, vol, cfg, gpu, 3, f"frozen {size}",
                 FROZEN_KERNELS)
-    launches, r, state, cam = online_phase(
+    launches, r, state, cam, frame_ms = online_phase(
         torch, dev, vol, cfg, gpu, 5,
         f"online {size} 2^{cfg.encoding.log2_hashmap_size}", ONLINE_KERNELS)
     split_frame(torch, r, state, cam, gpu)
+    profile_frame(torch, r, state, cam, gpu, frame_ms)
     del r, state
     tuned = AppConfig.tpu_tuned()
     online_phase(torch, dev, vol, tuned, gpu, 2,

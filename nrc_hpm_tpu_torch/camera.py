@@ -52,7 +52,7 @@ class Camera:
     @staticmethod
     def create(pos, view_dir, up=(0.0, 1.0, 0.0), aspect=16.0 / 9.0,
                fovy=np.radians(60.0), near=0.1, far=100.0,
-               device="cpu") -> "Camera":
+               device="cuda") -> "Camera":
         """Main-loop camera: pos=(64,0,0), dir=(-1,0,0), up=+Y, fov 60 deg."""
         pos = np.asarray(pos, np.float32)
         view_dir = np.asarray(view_dir, np.float32)
@@ -63,7 +63,7 @@ class Camera:
                       inv_proj_view=torch.as_tensor(inv, device=device))
 
     @staticmethod
-    def reference_camera(aspect=16.0 / 9.0, device="cpu") -> "Camera":
+    def reference_camera(aspect=16.0 / 9.0, device="cuda") -> "Camera":
         """The fixed golden-image camera (same as the default main camera)."""
         return Camera.create((64.0, 0.0, 0.0), (-1.0, 0.0, 0.0),
                              aspect=aspect, device=device)

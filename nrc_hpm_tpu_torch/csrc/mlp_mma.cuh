@@ -1,0 +1,146 @@
+// Bias-free ReLU MLP of width 64 on the tensor cores, one warp per group
+// of 16-row tiles: mma.sync m16n8k16 with bf16 operands and float32
+// accumulators (used by fused_encode_mlp.cu).
+//
+// Layout.  A weight matrix is stored transposed, one 64-value row per
+// output column n (128 bytes), so that ldmatrix (not transposed) hands out
+// the "col" B fragments directly; an activation tile is one 64-value row
+// per sample.  Both are cut into 16-byte chunks of 8 values, and chunk c
+// of row r sits at position c ^ (r & 7): the 8 row addresses of one
+// ldmatrix then fall in 8 different bank groups.
+//
+// Fragments (PTX ISA, mma.m16n8k16, groupID g = lane / 4, t = lane % 4):
+// A a0/a1 hold rows g / g + 8 at k = 2t, 2t + 1, a2/a3 the same rows at
+// k = 8 + 2t, 9 + 2t; the accumulator c0/c1 holds row g at n = 2t, 2t + 1,
+// c2/c3 row g + 8.  So the accumulators of n-tiles 2j and 2j + 1 are, once
+// rounded, exactly the A fragment of k-step j of the next layer: the
+// activations never leave the registers between layers.  Each is rounded
+// as bf16(max(acc, 0)), as the plain version rounds; only the order of the
+// float32 sum differs from a library matrix product.
+#pragma once
+
+#include <stdint.h>
+
+#include "bf16.cuh"
+
+namespace mlp_mma {
+
+constexpr int WIDTH = 64;
+constexpr int KSTEPS = WIDTH / 16;   // k-steps of 16 per layer
+constexpr int NTILES = WIDTH / 8;    // n-tiles of 8 per hidden layer
+constexpr int ROW_BYTES = WIDTH * 2;
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a swizzled block.
+__device__ __forceinline__ uint32_t swizzle(int row, int chunk) {
+  return (uint32_t)(row * ROW_BYTES + ((chunk ^ (row & 7)) << 4));
+}
+
+// bf16(max(a, 0)) in the low half, bf16(max(b, 0)) in the high half.
+__device__ __forceinline__ uint32_t relu_pack(float a, float b) {
+  return bf16::pack(fmaxf(a, 0.0f), fmaxf(b, 0.0f));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, which lands in r[i].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragments of MT row tiles (rows row0 + 16 mt ...) of a swizzled
+// activation tile at shared address `tile`.
+template <int MT>
+__device__ __forceinline__ void load_a(uint32_t (&a)[MT][KSTEPS][4],
+                                       uint32_t tile, int row0) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks)
+      ldmatrix_x4(a[mt][ks],
+                  tile + swizzle(row0 + 16 * mt + ((mi & 1) << 3) + r,
+                                 2 * ks + (mi >> 1)));
+}
+
+// One hidden layer, a <- bf16(relu(a @ W)), W the swizzled transposed
+// 64x64 matrix at shared address `w`.  Each B fragment pair is loaded once
+// for all MT row tiles.
+template <int MT>
+__device__ __forceinline__ void hidden_layer(uint32_t (&a)[MT][KSTEPS][4],
+                                             uint32_t w) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
+  float acc[MT][NTILES][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTILES; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+    for (int nt = 0; nt < NTILES; nt += 2) {
+      // b0/b1 of n-tile nt, then of nt + 1
+      uint32_t b[4];
+      ldmatrix_x4(b, w + swizzle(8 * nt + ((mi >> 1) << 3) + r,
+                                 2 * ks + (mi & 1)));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma(acc[mt][nt], a[mt][ks], b[0], b[1]);
+        mma(acc[mt][nt + 1], a[mt][ks], b[2], b[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < KSTEPS; ++j) {
+      a[mt][j][0] = relu_pack(acc[mt][2 * j][0], acc[mt][2 * j][1]);
+      a[mt][j][1] = relu_pack(acc[mt][2 * j][2], acc[mt][2 * j][3]);
+      a[mt][j][2] = relu_pack(acc[mt][2 * j + 1][0], acc[mt][2 * j + 1][1]);
+      a[mt][j][3] = relu_pack(acc[mt][2 * j + 1][2], acc[mt][2 * j + 1][3]);
+    }
+}
+
+// The output layer (no activation): one n-tile of 8 columns, W the
+// swizzled transposed 8x64 matrix at shared address `w`.
+template <int MT>
+__device__ __forceinline__ void output_layer(
+    const uint32_t (&a)[MT][KSTEPS][4], uint32_t w, float (&out)[MT][4]) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[mt][i] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ks += 2) {
+    // b0/b1 of k-step ks, then of ks + 1
+    uint32_t b[4];
+    ldmatrix_x4(b, w + swizzle(r, 2 * ks + mi));
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma(out[mt], a[mt][ks], b[0], b[1]);
+      mma(out[mt], a[mt][ks + 1], b[2], b[3]);
+    }
+  }
+}
+
+}  // namespace mlp_mma

@@ -12,17 +12,40 @@
 // each event (-1 where there is no density).  K2 is the same profile sweep
 // with one control-stream draw (salt 0x165667B1) inverted through ccum.
 //
-// What bounds it on the H100: per lane, 33 dependent macro-table lookups
-// and S x 32 telescoping steps of scalar FP32 work; the only device-memory
-// traffic is the per-lane inputs and the (S, N) outputs (~16 B per event).
-// So it is bound by latency and instruction rate, not by bandwidth.  The
-// simple design:
-// one thread per lane, the whole macro table (14 KB for the 126x86x154
-// cloud) staged in shared memory per block, the profile held in per-thread
-// arrays.  The TPU's rowsweep gather, (8, 128) tiles and unrolled loops
-// are not carried over.  This file is compiled with -fmad=false and every
+// What bounds them on the H100: per lane, 33 dependent macro-table lookups
+// and the inversion's scalar FP32 work; the only device-memory traffic is
+// the per-lane inputs and K1's (S, N) outputs (~16 B per event, ~320 MB at
+// 2^20 lanes and S = 16).  The train paths' late bounces launch K1 on a
+// few hundred lanes, where one thread's dependent chain is the launch.
+//
+// K1 is one interval walk, O(S + C) per lane.  The residual depth rcum is
+// non-decreasing (each interval adds (sig - ctl) h >= 0) and the event
+// depths E_s only grow, so the intervals event s counts (E_s >= rcum[c])
+// are a prefix that never shrinks from one event to the next.  Beyond the
+// prefix the telescoping sums add gef * x = +-0, which leaves a float
+// unchanged, so running sums carried from event to event add the same
+// terms in the same order as the S x C loop of the plain version and are
+// bitwise equal to it.  Per lane, in three passes:
+// - the S event depths, drawn in order (the draws are independent, only
+//   the running depth chains them);
+// - one sweep of the C intervals, CHUNK macro lookups at a time (the
+//   lookups are independent, so a chunk's latencies overlap), the walk one
+//   interval behind (the next interval's majorant and control enter the
+//   current one's terms); event s is finished at the first interval with
+//   E_s < rcum[c], and only its interval count and sums are recorded, a
+//   few shared-memory stores, so lanes whose events finish at other
+//   intervals diverge for little;
+// - the outputs of every event, a loop uniform across the warp, so the
+//   lane-minor (S, N) stores stay coalesced; an event the sweep did not
+//   finish lies beyond the segment.
+// No profile arrays are kept: the sweep holds one chunk of intervals, and
+// the S records live in shared memory (5 floats per event and thread).  A
+// persistent grid stages the macro table once per block with 16-byte
+// loads.  K2 keeps the simple design: one thread per lane and its profile
+// in per-thread arrays.  This file is compiled with -fmad=false and every
 // expression keeps the operation order of the plain PyTorch version
-// (ops/pw_kernels.py), so the two agree to the bit up to libm ulps.
+// (ops/pw_kernels.py), so the kernels agree with it to the bit up to libm
+// ulps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,6 +53,8 @@
 namespace {
 
 constexpr int C = 32;
+constexpr int THREADS = 128;
+constexpr int CHUNK = 4;  // K1's intervals looked up together
 
 struct Scene {
   float inv_sky[3];  // 1 / world box size
@@ -81,43 +106,93 @@ __device__ __forceinline__ void macro_lookup(const uint32_t* tbl,
   ctl = (in_strict ? c : 0.0f) * sc.density;
 }
 
-// The C-interval profile: sig/ctl per interval (index C holds 0), running
-// residual and control depths after each interval.
+// One interval of the profile sweep: its majorant and control, and the
+// running residual depth after it.
+struct Interval {
+  float sig, ctl, rc;
+};
+
+// The sweep along one segment: the lookup at the far end of the last
+// interval computed, the running depths, and the next interval's index.
+struct Sweep {
+  float p_sig, p_ctl, rc, cc;
+  int i;
+};
+
+__device__ __forceinline__ Sweep sweep_start(const uint32_t* tbl,
+                                             const Scene& sc,
+                                             const float o[3]) {
+  Sweep sw;
+  macro_lookup(tbl, sc, o[0], o[1], o[2], sw.p_sig, sw.p_ctl);
+  sw.rc = 0.0f;
+  sw.cc = 0.0f;
+  sw.i = 0;
+  return sw;
+}
+
+// Interval sw.i of C along o + t v, t in [i h, (i + 1) h].
+__device__ __forceinline__ Interval sweep_next(const uint32_t* tbl,
+                                               const Scene& sc,
+                                               const float o[3],
+                                               const float v[3], float h,
+                                               Sweep& sw) {
+  float t_i = (float)(sw.i + 1) * h;
+  float n_sig, n_ctl;
+  macro_lookup(tbl, sc, o[0] + t_i * v[0], o[1] + t_i * v[1],
+               o[2] + t_i * v[2], n_sig, n_ctl);
+  float s = fmaxf(sw.p_sig, n_sig);
+  float c = fminf(fminf(sw.p_ctl, n_ctl), s);
+  sw.cc = sw.cc + c * h;
+  sw.rc = sw.rc + (s - c) * h;
+  sw.p_sig = n_sig;
+  sw.p_ctl = n_ctl;
+  sw.i += 1;
+  return Interval{s, c, sw.rc};
+}
+
+// The C-interval profile in arrays (K2): sig/ctl per interval (index C
+// holds 0), running residual and control depths after each interval.
 __device__ __forceinline__ void profile(const uint32_t* tbl, const Scene& sc,
                                         const float o[3], const float v[3],
                                         float h, float* sig, float* ctl,
                                         float* rcum, float* ccum) {
-  float p_sig, p_ctl;
-  macro_lookup(tbl, sc, o[0], o[1], o[2], p_sig, p_ctl);
-  float cc = 0.0f, rc = 0.0f;
+  Sweep sw = sweep_start(tbl, sc, o);
 #pragma unroll
   for (int i = 0; i < C; ++i) {
-    float t_i = (float)(i + 1) * h;
-    float n_sig, n_ctl;
-    macro_lookup(tbl, sc, o[0] + t_i * v[0], o[1] + t_i * v[1],
-                 o[2] + t_i * v[2], n_sig, n_ctl);
-    float s = fmaxf(p_sig, n_sig);
-    float c = fminf(fminf(p_ctl, n_ctl), s);
-    cc = cc + c * h;
-    rc = rc + (s - c) * h;
-    sig[i] = s;
-    ctl[i] = c;
-    rcum[i] = rc;
-    ccum[i] = cc;
-    p_sig = n_sig;
-    p_ctl = n_ctl;
+    const Interval iv = sweep_next(tbl, sc, o, v, h, sw);
+    sig[i] = iv.sig;
+    ctl[i] = iv.ctl;
+    rcum[i] = iv.rc;
+    ccum[i] = sw.cc;
   }
   sig[C] = 0.0f;
   ctl[C] = 0.0f;
 }
 
+// The packed macro table into shared memory: 16-byte loads where the
+// table is 16-byte aligned, then the words left over.
 __device__ __forceinline__ void stage_table(const uint32_t* macro,
                                             int n_macro, uint32_t* tbl) {
-  for (int i = threadIdx.x; i < n_macro; i += blockDim.x) tbl[i] = macro[i];
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(macro) & 15) == 0) {
+    done = n_macro & ~3;
+    const uint4* src = reinterpret_cast<const uint4*>(macro);
+    uint4* dst = reinterpret_cast<uint4*>(tbl);
+#pragma unroll 8
+    for (int i = threadIdx.x; i < done / 4; i += blockDim.x) dst[i] = src[i];
+  }
+  for (int i = done + threadIdx.x; i < n_macro; i += blockDim.x)
+    tbl[i] = macro[i];
   __syncthreads();
 }
 
-__global__ void pw_events_kernel(
+// K1's per-thread event records in shared memory, one row of THREADS
+// floats per event and field (so each thread's column is conflict-free):
+// the event depth, then the interval count and the three running sums at
+// the interval where the walk finished the event.
+constexpr int REC_FIELDS = 5;
+
+__global__ void __launch_bounds__(THREADS) pw_events_kernel(
     const float* __restrict__ start, const float* __restrict__ dir,
     const float* __restrict__ tmax, const uint32_t* __restrict__ seed,
     const float* __restrict__ e_last, const uint32_t* __restrict__ macro,
@@ -126,59 +201,104 @@ __global__ void pw_events_kernel(
     float* __restrict__ c_out, float* __restrict__ sres_out,
     float* __restrict__ enew_out, float* __restrict__ rtot_out,
     float* __restrict__ ctot_out) {
-  extern __shared__ uint32_t tbl[];
+  extern __shared__ uint32_t smem[];
+  uint32_t* tbl = smem;
   stage_table(macro, n_macro, tbl);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  const int rs = S * THREADS;  // one field's rows
+  float* const rE = reinterpret_cast<float*>(smem + ((n_macro + 3) & ~3)) +
+                    threadIdx.x;
+  float* const rK = rE + rs;
+  float* const rL = rK + rs;
+  float* const rC = rL + rs;
+  float* const rS = rC + rs;
+  const Interval zero{0.0f, 0.0f, 0.0f};
+  for (int lane = blockIdx.x * blockDim.x + threadIdx.x; lane < n;
+       lane += gridDim.x * blockDim.x) {
+    const float o[3] = {start[3 * lane], start[3 * lane + 1],
+                        start[3 * lane + 2]};
+    const float v[3] = {dir[3 * lane], dir[3 * lane + 1],
+                        dir[3 * lane + 2]};
+    const float h = tmax[lane] * (1.0f / C);
 
-  const float o[3] = {start[3 * lane], start[3 * lane + 1],
-                      start[3 * lane + 2]};
-  const float v[3] = {dir[3 * lane], dir[3 * lane + 1], dir[3 * lane + 2]};
-  const float h = tmax[lane] * (1.0f / C);
-  float sig[C + 1], ctl[C + 1], rcum[C], ccum[C];
-  profile(tbl, sc, o, v, h, sig, ctl, rcum, ccum);
-  const float rtot = rcum[C - 1];
-  rtot_out[lane] = rtot;
-  ctot_out[lane] = ccum[C - 1];
-
-  const uint32_t sd = seed[lane];
-  float E = e_last[lane];
-  for (int s = 0; s < S; ++s) {
-    E = E - log1pf(-uniform(sd, e_base + (uint32_t)s, salt));
-    float kacc = 0.0f, e_left = 0.0f, c_at = ctl[0], sig_at = sig[0];
-    float r_prev = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float rc = rcum[c];
-      float gef = E >= rc ? 1.0f : 0.0f;
-      kacc = kacc + gef;
-      e_left = e_left + gef * (rc - r_prev);
-      c_at = c_at + gef * (ctl[c + 1] - ctl[c]);
-      sig_at = sig_at + gef * (sig[c + 1] - sig[c]);
-      r_prev = rc;
+    // 1. the S event depths, drawn in order
+    const uint32_t sd = seed[lane];
+    float E = e_last[lane];
+#pragma unroll 4
+    for (int s = 0; s < S; ++s) {
+      E = E - log1pf(-uniform(sd, e_base + (uint32_t)s, salt));
+      rE[s * THREADS] = E;
     }
-    const bool beyond = E >= rtot;
-    const float sres = fmaxf(sig_at - c_at, 1e-12f);
-    const float rate_h = sres * h;
-    float t = kacc * h + (E - e_left) * h / fmaxf(rate_h, 1e-20f);
-    t = beyond ? -1.0f : t;
-    float ux = (o[0] + t * v[0]) * sc.inv_sky[0] + 0.5f;
-    float uy = (o[1] + t * v[1]) * sc.inv_sky[1] + 0.5f;
-    float uz = (o[2] + t * v[2]) * sc.inv_sky[2] + 0.5f;
-    bool inside = ux >= 0.0f && ux < 1.0f && uy >= 0.0f && uy < 1.0f &&
-                  uz >= 0.0f && uz < 1.0f;
-    const float X = sc.fdim[0], Y = sc.fdim[1], Z = sc.fdim[2];
-    float gx = clampf(floorf(ux * X), 0.0f, X - 1.0f);
-    float gy = clampf(floorf(uy * Y), 0.0f, Y - 1.0f);
-    float gz = clampf(floorf(uz * Z), 0.0f, Z - 1.0f);
-    int lin = (int)(gx * (Y * Z) + gy * Z + gz);
-    const size_t at = (size_t)s * n + lane;
-    lin_out[at] = (inside && !beyond) ? lin : -1;
-    t_out[at] = t;
-    c_out[at] = c_at;
-    sres_out[at] = sres;
+
+    // 2. one sweep over the C intervals, CHUNK lookups at a time.  The
+    // running sums take every interval's terms; event s is finished (its
+    // sums recorded) at the first interval c with E_s < rcum[c], before
+    // interval c's terms are added.
+    Sweep sw = sweep_start(tbl, sc, o);
+    Interval cur = sweep_next(tbl, sc, o, v, h, sw);
+    float kacc = 0.0f, e_left = 0.0f, c_at = cur.ctl, sig_at = cur.sig;
+    float r_prev = 0.0f;
+    int s = 0;
+    float Es = S > 0 ? rE[0] : 0.0f;
+#pragma unroll
+    for (int c0 = 0; c0 < C; c0 += CHUNK) {
+      Interval nx[CHUNK];  // intervals c0 + 1 ... c0 + CHUNK (zero at C)
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j)
+        nx[j] = c0 + 1 + j < C ? sweep_next(tbl, sc, o, v, h, sw) : zero;
+#pragma unroll
+      for (int j = 0; j < CHUNK; ++j) {
+        while (s < S && Es < cur.rc) {
+          rK[s * THREADS] = kacc;
+          rL[s * THREADS] = e_left;
+          rC[s * THREADS] = c_at;
+          rS[s * THREADS] = sig_at;
+          ++s;
+          Es = s < S ? rE[s * THREADS] : 0.0f;
+        }
+        kacc = kacc + 1.0f;
+        e_left = e_left + (cur.rc - r_prev);
+        c_at = c_at + (nx[j].ctl - cur.ctl);
+        sig_at = sig_at + (nx[j].sig - cur.sig);
+        r_prev = cur.rc;
+        cur = nx[j];
+      }
+    }
+
+    // 3. every event's outputs, one coalesced (S, N) row at a time; the
+    // events the sweep did not finish lie beyond the segment (E_s >=
+    // rcum[C - 1]) and take the sums over all C intervals
+    const int finished = s;
+    for (int e = 0; e < S; ++e) {
+      const bool beyond = e >= finished;
+      const float Ee = rE[e * THREADS];
+      const float k = beyond ? kacc : rK[e * THREADS];
+      const float el = beyond ? e_left : rL[e * THREADS];
+      const float ca = beyond ? c_at : rC[e * THREADS];
+      const float sa = beyond ? sig_at : rS[e * THREADS];
+      const float sres = fmaxf(sa - ca, 1e-12f);
+      const float rate_h = sres * h;
+      float t = k * h + (Ee - el) * h / fmaxf(rate_h, 1e-20f);
+      t = beyond ? -1.0f : t;
+      float ux = (o[0] + t * v[0]) * sc.inv_sky[0] + 0.5f;
+      float uy = (o[1] + t * v[1]) * sc.inv_sky[1] + 0.5f;
+      float uz = (o[2] + t * v[2]) * sc.inv_sky[2] + 0.5f;
+      bool inside = ux >= 0.0f && ux < 1.0f && uy >= 0.0f && uy < 1.0f &&
+                    uz >= 0.0f && uz < 1.0f;
+      const float X = sc.fdim[0], Y = sc.fdim[1], Z = sc.fdim[2];
+      float gx = clampf(floorf(ux * X), 0.0f, X - 1.0f);
+      float gy = clampf(floorf(uy * Y), 0.0f, Y - 1.0f);
+      float gz = clampf(floorf(uz * Z), 0.0f, Z - 1.0f);
+      int lin = (int)(gx * (Y * Z) + gy * Z + gz);
+      const size_t at = (size_t)e * n + lane;
+      lin_out[at] = (inside && !beyond) ? lin : -1;
+      t_out[at] = t;
+      c_out[at] = ca;
+      sres_out[at] = sres;
+    }
+    enew_out[lane] = E;
+    rtot_out[lane] = sw.rc;
+    ctot_out[lane] = sw.cc;
   }
-  enew_out[lane] = E;
 }
 
 __global__ void pw_profile_kernel(
@@ -222,8 +342,6 @@ __global__ void pw_profile_kernel(
   tctrl_out[lane] = t_ctrl;
 }
 
-constexpr int THREADS = 128;
-
 Scene make_scene(float isx, float isy, float isz, int mx, int my, int mz,
                  int X, int Y, int Z, float density) {
   Scene sc;
@@ -257,11 +375,24 @@ extern "C" int pw_events_launch(
     unsigned e_base, unsigned salt, int S, int n, void* lin, void* t,
     void* c_at, void* sres, void* e_new, void* rtot, void* ctot,
     void* stream) {
-  const size_t smem = (size_t)n_macro * sizeof(uint32_t);
+  const size_t smem = ((size_t)((n_macro + 3) & ~3) +
+                       (size_t)REC_FIELDS * S * THREADS) * sizeof(uint32_t);
   cudaError_t err = set_smem(pw_events_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const Scene sc = make_scene(isx, isy, isz, mx, my, mz, X, Y, Z, density);
-  const int blocks = (n + THREADS - 1) / THREADS;
+  // persistent grid: as many blocks as fit on the card at once, so each
+  // stages the table once for many lanes
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, pw_events_kernel, THREADS, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tiles = (n + THREADS - 1) / THREADS;
+  const int blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
   pw_events_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)start, (const float*)dir, (const float*)tmax,
       (const uint32_t*)seed, (const float*)e_last, (const uint32_t*)macro,

@@ -40,7 +40,7 @@ class DirLight:
 
     @staticmethod
     def create(zenith=-1.57, azimuth=0.0, color=(1.0, 1.0, 1.0),
-               strength=0.0, device="cpu") -> "DirLight":
+               strength=0.0, device="cuda") -> "DirLight":
         return DirLight(
             color=torch.tensor(color, dtype=torch.float32, device=device),
             direction=torch.as_tensor(dir_from_angles(zenith, azimuth),
@@ -56,7 +56,7 @@ class PointLight:
 
     @staticmethod
     def create(pos=(0.0, 0.0, 0.0), color=(1.0, 1.0, 1.0), strength=0.0,
-               device="cpu") -> "PointLight":
+               device="cuda") -> "PointLight":
         return PointLight(
             pos=torch.tensor(pos, dtype=torch.float32, device=device),
             color=torch.tensor(color, dtype=torch.float32, device=device),
@@ -69,14 +69,14 @@ class HdrEnvMap:
     strength: float
 
     @staticmethod
-    def constant_white(strength: float, device="cpu") -> "HdrEnvMap":
+    def constant_white(strength: float, device="cuda") -> "HdrEnvMap":
         return HdrEnvMap(image=torch.ones((1, 1, 3), dtype=torch.float32,
                                           device=device),
                          strength=float(np.float32(strength)))
 
     @staticmethod
     def from_image(image: np.ndarray, strength: float,
-                   device="cpu") -> "HdrEnvMap":
+                   device="cuda") -> "HdrEnvMap":
         img = np.asarray(image, np.float32)[..., :3]
         return HdrEnvMap(image=torch.as_tensor(img, device=device),
                          strength=float(np.float32(strength)))
@@ -128,7 +128,7 @@ class LightFlags:
                           env_on=scene.hdr_env_map_strength != 0.0)
 
 
-def lights_from_scene(scene, device="cpu") -> Lights:
+def lights_from_scene(scene, device="cuda") -> Lights:
     """The light set of a SceneConfig preset (constant-white env map)."""
     env = HdrEnvMap.constant_white(scene.hdr_env_map_strength, device)
     return Lights(

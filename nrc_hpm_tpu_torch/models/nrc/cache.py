@@ -185,7 +185,7 @@ class NeuralRadianceCache:
         self.compute_dtype = compute_dtype(cfg.mlp_dtype)
         self.train_fast = cfg.hash_train_fast
 
-    def init_state(self, generator: torch.Generator, device="cpu"
+    def init_state(self, generator: torch.Generator, device="cuda"
                    ) -> NrcState:
         """Random init from a CPU generator: hash table uniform in
         [-1e-4, 1e-4], He-uniform MLP."""
@@ -196,7 +196,7 @@ class NeuralRadianceCache:
         }
         return self.state_from_params(params, device)
 
-    def state_from_params(self, params: dict, device="cpu") -> NrcState:
+    def state_from_params(self, params: dict, device="cuda") -> NrcState:
         """A fresh training state whose trained and served parameters are
         copies of ``params``."""
         params = tree_map(lambda t: t.to(device, copy=True), params)

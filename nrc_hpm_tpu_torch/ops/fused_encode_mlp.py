@@ -3,9 +3,11 @@
 Replaces the Pallas kernel ``nrc_hpm_tpu/ops/fused_encode_mlp.py:_kernel``
 (wrapper ``fused_encode_mlp_infer``) with the CUDA kernel of
 ``csrc/fused_encode_mlp.cu``; that file's header says what bounds it on
-the H100 and what the simple design does about it.  Unlike the TPU
-kernel, which only served tables up to 2^16 entries per level, it serves
-every table size of the default encoding (the reference's 2^19 included).
+the H100 and what its design does about it (the encode into a
+shared-memory tile, the MLP on the tensor cores with mma.sync).  Unlike
+the TPU kernel, which only served tables up to 2^16 entries per level, it
+serves every table size of the default encoding (the reference's 2^19
+included).
 
 The wrapper takes the plain PyTorch version for CPU tensors (hash-grid
 encode from the packed table, OneBlob, ones padding, bf16 MLP) and
@@ -37,21 +39,33 @@ def fused_encode_mlp_plain(packed_table, layers, x5, spec: HashGridSpec,
     return mlp_apply({"layers": layers}, feats)
 
 
+def swizzle_rows(block: torch.Tensor) -> torch.Tensor:
+    """(R, 64) -> (R, 64): each row's 8-value chunk c moved to position
+    c ^ (r % 8), the bank-conflict-free order of ``csrc/mlp_mma.cuh``.  The
+    map is its own inverse."""
+    rows = torch.arange(block.shape[0], device=block.device)[:, None]
+    pos = torch.arange(WIDTH // 8, device=block.device)[None, :] ^ (rows % 8)
+    return block.reshape(-1, WIDTH // 8, 8)[rows, pos].reshape(-1, WIDTH)
+
+
 def kernel_weights(layers) -> torch.Tensor:
-    """The kernel's bf16 weight block: each hidden layer as a (64, 64)
-    row-major matrix (layer 0's rows padded with zeros), then the output
-    layer as (64, 8) with zero columns."""
+    """The kernel's bf16 weight block, the image of its shared memory: each
+    hidden layer transposed to 64 rows of 64 inputs, one per output (layer
+    0's inputs padded with zeros), then the output layer's 8 rows (zero
+    rows past out_dim), every row swizzled by ``swizzle_rows`` so that
+    ldmatrix reads the mma.sync B fragments straight from it."""
     hidden, w_out = layers[:-1], layers[-1]
     dev = w_out.device
     blocks = []
     for w in hidden:
         m = torch.zeros((WIDTH, WIDTH), dtype=torch.float32, device=dev)
-        m[:w.shape[0]] = w
-        blocks.append(m.reshape(-1))
-    m = torch.zeros((WIDTH, OUT_PAD), dtype=torch.float32, device=dev)
-    m[:, :w_out.shape[1]] = w_out
-    blocks.append(m.reshape(-1))
-    return torch.cat(blocks).to(torch.bfloat16).contiguous()
+        m[:, :w.shape[0]] = w.t()
+        blocks.append(m)
+    m = torch.zeros((OUT_PAD, WIDTH), dtype=torch.float32, device=dev)
+    m[:w_out.shape[1]] = w_out.t()
+    blocks.append(m)
+    block = torch.cat(blocks).to(torch.bfloat16)
+    return swizzle_rows(block).reshape(-1).contiguous()
 
 
 def _lib():

@@ -3,8 +3,10 @@
 Replaces the Pallas kernels ``nrc_hpm_tpu/ops/pw_kernels.py:_make_kernel``
 (wrapper ``pw_events``) and ``:_make_profile_kernel`` (wrapper
 ``pw_profile``) with the CUDA kernels of ``csrc/pw_kernels.cu``; that file's
-header says what bounds them on the H100 and how the simple design
-(one thread per lane, the macro table in shared memory) deals with it.
+header says what bounds them on the H100 and what each design does about
+it (K1: one O(S + C) interval walk per lane on a persistent grid, bitwise
+the telescoping sums below, its S event records in shared memory; K2: one
+thread per lane, the profile in arrays).
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors; ``<wrapper>.launches`` counts kernel launches.
@@ -36,6 +38,8 @@ SALT_DELTA = 0x85EBCA6B
 SALT_CTRL = 0x165667B1
 T_BEYOND = 3.0e38
 _MAX_SMEM = 227 * 1024
+_THREADS = 128
+_REC_BYTES = 5 * 4 * _THREADS     # K1's shared memory per event: records
 _LIB = "pw_kernels"
 
 
@@ -210,6 +214,10 @@ def pw_events(vol, start, direction, tmax, seed, e_last, e_base: int,
         return pw_events_plain(vol, start, direction, tmax, seed, e_last,
                                e_base, S, salt)
     n = _check_lanes("pw_events", vol, start, direction, tmax, seed, e_last)
+    words = -(-vol.macro_packed.numel() // 4) * 4
+    _build.require("pw_events", 4 * words + _REC_BYTES * S <= _MAX_SMEM,
+                   f"S = {S} events' records and the macro table exceed "
+                   f"one block's shared memory")
     dev = start.device
     f32 = dict(dtype=torch.float32, device=dev)
     out = dict(lin=torch.empty((S, n), dtype=torch.int32, device=dev),

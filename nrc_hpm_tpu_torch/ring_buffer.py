@@ -27,7 +27,7 @@ class RingBuffer:
         return self.data.shape[0]
 
     @staticmethod
-    def create(capacity: int, device="cpu") -> "RingBuffer":
+    def create(capacity: int, device="cuda") -> "RingBuffer":
         d = np.zeros((max(capacity, 1), 6), np.float32)
         d[:, 3:] = 1.0 / np.sqrt(3.0)
         zero = torch.zeros((), dtype=torch.int32, device=device)

@@ -60,7 +60,7 @@ class Volume:
 
     @staticmethod
     def from_dense(data: np.ndarray, density_factor: float, g: float,
-                   device="cpu") -> "Volume":
+                   device="cuda") -> "Volume":
         """Build from a dense [x, y, z] float array in [0, 1]."""
         data = np.asarray(data, np.float32)
         grid = (np.clip(data, 0.0, 1.0) * 255.0).astype(np.uint8)

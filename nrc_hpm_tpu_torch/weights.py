@@ -23,7 +23,7 @@ def _t(a, device, dtype=np.float32) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype), device=device)
 
 
-def params_from_jax(ema_params_np: dict, device="cpu") -> dict:
+def params_from_jax(ema_params_np: dict, device="cuda") -> dict:
     """Any encoding tree: ``{"hash_table": ...}`` or ``{}`` (encodings
     without parameters)."""
     return {"encoding": {k: _t(v, device)
@@ -32,7 +32,7 @@ def params_from_jax(ema_params_np: dict, device="cpu") -> dict:
                                ema_params_np["mlp"]["layers"]]}}
 
 
-def state_from_jax(nrc_state_np, device="cpu") -> NrcState:
+def state_from_jax(nrc_state_np, device="cuda") -> NrcState:
     """The JAX ``NrcState`` (leaves as numpy arrays) -> the port's.  Its
     ``opt_state`` is optax's chain state: ``(ScaleByAdamState(count, mu,
     nu), EmptyState())`` for Adam, empty states for SGD."""
@@ -48,7 +48,7 @@ def state_from_jax(nrc_state_np, device="cpu") -> NrcState:
                     step=int(s.step))
 
 
-def ring_from_jax(ring_np, device="cpu") -> RingBuffer:
+def ring_from_jax(ring_np, device="cuda") -> RingBuffer:
     return RingBuffer(data=_t(ring_np.data, device),
                       head=_t(ring_np.head, device, np.int32),
                       tail=_t(ring_np.tail, device, np.int32))

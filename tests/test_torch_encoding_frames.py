@@ -62,7 +62,7 @@ def _np(tree):
 def _volumes():
     data = np.random.RandomState(42).rand(8, 8, 8).astype(np.float32)
     return (JVolume.from_dense(data, 0.6, 0.8),
-            TVolume.from_dense(data, 0.6, 0.8))
+            TVolume.from_dense(data, 0.6, 0.8, device="cpu"))
 
 
 def _cfgs(pos=0, dir_=0, scene=4, **kw):
@@ -98,13 +98,13 @@ def _two_frames_match(jc, tc, env, strict):
 
     tr.cache.train_frame = record
     cam_j = jcam.Camera.reference_camera(W / H)
-    cam_t = tcam.Camera.reference_camera(W / H)
+    cam_t = tcam.Camera.reference_camera(W / H, device="cpu")
     key = js.key
     for frame in range(2):
         key, sub = jax.random.split(key)
         fr = np.asarray(jrng.frame_random(sub))
         before = _np(js.nrc)
-        ts.nrc = state_from_jax(before)
+        ts.nrc = state_from_jax(before, device="cpu")
         js = jr.step(js, cam_j)
         ts = tr.step(ts, cam_t, frame_random=torch.tensor(fr))
         jimg, timg = np.asarray(js.image), ts.image.numpy()
@@ -169,7 +169,7 @@ def test_every_encoding_steps_online_and_frozen(pos, dir_):
     _, tv = _volumes()
     r = tren.NrcRenderer(tc, vol=tv)
     st = r.init_state(0)
-    cam = tcam.Camera.reference_camera(W / H)
+    cam = tcam.Camera.reference_camera(W / H, device="cpu")
     st = r.step(st, cam)
     assert st.nrc.step == tc.train_batch_count
     assert np.isfinite(float(st.nrc.loss))

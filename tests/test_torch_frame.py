@@ -48,7 +48,7 @@ def _cfgs():
 def _volumes():
     data = np.random.RandomState(42).rand(8, 8, 8).astype(np.float32)
     return (JVolume.from_dense(data, 0.6, 0.8),
-            TVolume.from_dense(data, 0.6, 0.8))
+            TVolume.from_dense(data, 0.6, 0.8, device="cpu"))
 
 
 def test_primary_pass_matches_jax():
@@ -63,10 +63,11 @@ def test_primary_pass_matches_jax():
                              flags=JLightFlags.from_scene(jc.scene)
                          ).primary_params(), cfg=jc))(
         st, ro=jnp.broadcast_to(ro, rdf.shape), rd=rdf)
-    tro, trd, tuv = tcam.pixel_rays(tcam.Camera.reference_camera(W / H), W, H)
+    tcam_t = tcam.Camera.reference_camera(W / H, device="cpu")
+    tro, trd, tuv = tcam.pixel_rays(tcam_t, W, H)
     tp = tren.primary_pass(
         trng.init_state(tuv, torch.from_numpy(fr)).reshape(-1), tv,
-        lights_from_scene(tc.scene),
+        lights_from_scene(tc.scene, device="cpu"),
         TraceParams(flags=LightFlags.from_scene(tc.scene)).primary_params(),
         tc, tro.expand(W * H, 3), trd.reshape(-1, 3))
     scat_j = np.asarray(jp["did_scatter"])
@@ -93,9 +94,9 @@ def frames():
                               train=False).image)
     tr = tren.NrcRenderer(tc, vol=tv)
     ts = tr.init_state(0, nrc=tr.cache.state_from_params(
-        params_from_jax(ema)))
-    ts = tr.step(ts, tcam.Camera.reference_camera(W / H), train=False,
-                 frame_random=torch.tensor(fr))
+        params_from_jax(ema, device="cpu"), device="cpu"))
+    ts = tr.step(ts, tcam.Camera.reference_camera(W / H, device="cpu"),
+                 train=False, frame_random=torch.tensor(fr))
     return jimg, ts, tr
 
 
@@ -115,7 +116,7 @@ def test_frozen_frame_matches_jax(frames):
 
 def test_blend_reset_and_train_guard(frames):
     _, ts, tr = frames
-    cam = tcam.Camera.reference_camera(W / H)
+    cam = tcam.Camera.reference_camera(W / H, device="cpu")
     fr = torch.tensor([0.2, 0.4, 0.6, 0.8])
     one = tr.step(dataclasses.replace(ts, image=torch.zeros_like(ts.image),
                                       blend_index=1), cam, train=False,

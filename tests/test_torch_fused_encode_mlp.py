@@ -21,6 +21,7 @@ from nrc_hpm_tpu.ops.fused_encode_mlp import fused_encode_mlp_infer
 from nrc_hpm_tpu_torch.config import AppConfig, EncodingConfig
 from nrc_hpm_tpu_torch.models.nrc import encoding as tenc
 from nrc_hpm_tpu_torch.models.nrc.cache import NeuralRadianceCache
+from nrc_hpm_tpu_torch.models.nrc.mlp import mlp_apply
 from nrc_hpm_tpu_torch.ops import fused_encode_mlp as fem
 from nrc_hpm_tpu_torch.weights import params_from_jax
 
@@ -91,7 +92,8 @@ def test_plain_matches_pallas_interpret(n):
         jc.encoding.grid_spec, n_bins=4, blk_r=8, interpret=True))
     got = fem.fused_encode_mlp_infer(
         tenc.pack_table_bf16(torch.from_numpy(table)),
-        params_from_jax(params)["mlp"]["layers"], torch.from_numpy(x5),
+        params_from_jax(params, device="cpu")["mlp"]["layers"],
+        torch.from_numpy(x5),
         tenc.HashGridSpec(n_levels=8, log2_table_size=12))
     assert got.shape == (n, 3)
     assert np.abs(got.numpy() - want).max() <= 1e-2, \
@@ -106,7 +108,8 @@ def test_cache_infer_matches_jax():
     state = state.replace(ema_params=jax.tree.map(jnp.asarray, ema))
     x5 = _x5(2048, 4)
     want = np.asarray(jc.infer(state, jnp.asarray(x5)))
-    got = tc.infer(tc.state_from_params(params_from_jax(ema)),
+    got = tc.infer(tc.state_from_params(params_from_jax(ema, device="cpu"),
+                                        device="cpu"),
                    torch.from_numpy(x5)).numpy()
     err = np.abs(got - want)
     assert err.max() <= 1e-2, "cache.infer within 1e-2"
@@ -129,3 +132,186 @@ def test_wrapper_rejects_other_devices_and_encodings():
             torch.zeros(spec.total_params, dtype=torch.int32, device="meta"),
             [torch.zeros((16, 64), device="meta")],
             torch.zeros((4, 5), device="meta"), spec)
+
+
+def _layers(in_dim=48, depth=3, out_dim=3, seed=5):
+    rs = np.random.RandomState(seed)
+    dims = [in_dim] + [64] * depth + [out_dim]
+    return [torch.from_numpy((rs.normal(size=(a, b)) / np.sqrt(a))
+                             .astype(np.float32))
+            for a, b in zip(dims[:-1], dims[1:])]
+
+
+def _bits(t):
+    return t.to(torch.bfloat16).view(torch.int16)
+
+
+@pytest.mark.parametrize("in_dim,depth,out_dim", [(48, 3, 3), (64, 6, 8),
+                                                  (16, 1, 1)])
+def test_kernel_weights_unpack_to_the_layers(in_dim, depth, out_dim):
+    """The kernel's weight block, unswizzled and transposed back, is each
+    (in, out) layer in bf16, bitwise, with zeros in the padding."""
+    layers = _layers(in_dim, depth, out_dim)
+    block = fem.kernel_weights(layers)
+    assert block.dtype == torch.bfloat16
+    assert block.numel() == (depth * fem.WIDTH + fem.OUT_PAD) * fem.WIDTH
+    rows = fem.swizzle_rows(block.reshape(-1, fem.WIDTH))
+    for i, w in enumerate(layers[:-1]):
+        m = rows[i * 64:(i + 1) * 64].t()
+        assert torch.equal(m[:w.shape[0]].view(torch.int16), _bits(w))
+        assert not m[w.shape[0]:].any()
+    m = rows[depth * 64:].t()
+    assert torch.equal(m[:, :out_dim].view(torch.int16), _bits(layers[-1]))
+    assert not m[:, out_dim:].any()
+
+
+# -- the warp's fragment walk of csrc/fused_encode_mlp.cu and mlp_mma.cuh,
+# mirrored in numpy with the PTX fragment layouts of ldmatrix and
+# mma.m16n8k16 (lane l: g = l // 4, t = l % 4) ---------------------------
+
+def _bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def _f32(u16):
+    return (u16.astype(np.uint32) << 16).view(np.float32)
+
+
+def _swz(row, chunk):
+    return row * 128 + ((chunk ^ (row & 7)) << 4)
+
+
+def _ldmatrix_x4(mem, addr):
+    """mem: shared memory as uint16; addr(lane) the row address lane
+    8i + j gives for row j of matrix i.  Returns (32, 4, 2): lane l holds
+    row l // 4, columns 2 (l % 4) + (0, 1) of each matrix."""
+    rows = np.stack([mem[addr(l) // 2:addr(l) // 2 + 8] for l in range(32)])
+    lane = np.arange(32)
+    cols = 2 * (lane % 4)[:, None] + np.arange(2)
+    return np.stack([rows[8 * i + lane // 4][lane[:, None], cols]
+                     for i in range(4)], axis=1)
+
+
+def _mma(d, a, b0, b1):
+    """d (32, 4) += A (16x16 from a (32, 4, 2)) @ B (16x8 from b0/b1)."""
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    A = np.zeros((16, 16), np.float32)
+    B = np.zeros((16, 8), np.float32)
+    for e in range(2):
+        A[g, 2 * t + e] = _f32(a[:, 0, e])
+        A[g + 8, 2 * t + e] = _f32(a[:, 1, e])
+        A[g, 2 * t + 8 + e] = _f32(a[:, 2, e])
+        A[g + 8, 2 * t + 8 + e] = _f32(a[:, 3, e])
+        B[2 * t + e, g] = _f32(b0[:, e])
+        B[2 * t + 8 + e, g] = _f32(b1[:, e])
+    D = A.astype(np.float64) @ B
+    for e in range(2):
+        d[:, e] += D[g, 2 * t + e].astype(np.float32)
+        d[:, 2 + e] += D[g + 8, 2 * t + e].astype(np.float32)
+
+
+def _warp_mlp(feats, block, depth):
+    """One warp tile of 32 samples through the kernel's index math."""
+    mi, r = np.arange(32) >> 3, np.arange(32) & 7
+    wbytes = block.numel() * 2
+    mem = np.zeros(wbytes // 2 + 32 * 64, np.uint16)
+    mem[:block.numel()] = block.view(torch.int16).numpy().view(np.uint16)
+    x = _bf16(feats)                                   # (32, 64)
+    for row in range(32):                              # encode_row's stores
+        for c in range(8):
+            at = (wbytes + _swz(row, c)) // 2
+            mem[at:at + 8] = x[row, 8 * c:8 * c + 8]
+    a = [[_ldmatrix_x4(mem, lambda l, mt=mt, ks=ks: wbytes + _swz(
+        16 * mt + ((mi[l] & 1) << 3) + r[l], 2 * ks + (mi[l] >> 1)))
+        for ks in range(4)] for mt in range(2)]
+    for m in range(depth):
+        w = m * 64 * 128
+        acc = np.zeros((2, 8, 32, 4), np.float32)
+        for ks in range(4):
+            for nt in range(0, 8, 2):
+                b = _ldmatrix_x4(mem, lambda l, nt=nt, ks=ks: w + _swz(
+                    8 * nt + ((mi[l] >> 1) << 3) + r[l], 2 * ks + (mi[l] & 1)))
+                for mt in range(2):
+                    _mma(acc[mt, nt], a[mt][ks], b[:, 0], b[:, 1])
+                    _mma(acc[mt, nt + 1], a[mt][ks], b[:, 2], b[:, 3])
+        h = _bf16(np.maximum(acc, 0.0))                # relu_pack
+        a = [[np.stack([h[mt, 2 * j][:, 0:2], h[mt, 2 * j][:, 2:4],
+                        h[mt, 2 * j + 1][:, 0:2], h[mt, 2 * j + 1][:, 2:4]],
+                       axis=1) for j in range(4)] for mt in range(2)]
+    w = depth * 64 * 128
+    o = np.zeros((2, 32, 4), np.float32)
+    for ks in range(0, 4, 2):
+        b = _ldmatrix_x4(mem, lambda l, ks=ks: w + _swz(r[l], 2 * ks + mi[l]))
+        for mt in range(2):
+            _mma(o[mt], a[mt][ks], b[:, 0], b[:, 1])
+            _mma(o[mt], a[mt][ks + 1], b[:, 2], b[:, 3])
+    out = np.zeros((32, 8), np.float32)                # the output stores
+    g, tq = np.arange(32) >> 2, np.arange(32) & 3
+    for mt in range(2):
+        for h in range(2):
+            for e in range(2):
+                out[16 * mt + g + 8 * h, 2 * tq + e] = o[mt, :, 2 * h + e]
+    return out
+
+
+@pytest.mark.parametrize("in_dim,depth", [(64, 2), (48, 1)])
+def test_mma_fragment_walk_computes_the_mlp(in_dim, depth):
+    """The kernel's tile swizzle, ldmatrix addresses, fragment chaining
+    between layers and output stores, run on the weight block, give the
+    plain bf16 MLP (within 1e-2: float32 sums in another order can flip a
+    bf16 activation by one ulp)."""
+    layers = _layers(in_dim, depth, 3, seed=in_dim)
+    feats = np.random.RandomState(depth).uniform(
+        -1, 1, (32, 64)).astype(np.float32)
+    feats[:, in_dim:] = 0.0
+    want = mlp_apply({"layers": layers},
+                     torch.from_numpy(feats[:, :in_dim])).numpy()
+    got = _warp_mlp(feats, fem.kernel_weights(layers), depth)
+    assert not got[:, 3:].any()
+    np.testing.assert_allclose(got[:, :3], want, rtol=1e-2, atol=1e-2)
+    assert (np.abs(got[:, :3] - want) <= 1e-5).mean() >= 0.9
+
+
+@pytest.mark.parametrize("case,what", [
+    ("x5-f64", "x5 must be"), ("x5-4", "x5 must be"),
+    ("table-shape", "packed_table must be"),
+    ("levels", "<= 16 levels"), ("bins", "<= 8 bins"),
+    ("in-dim", "in_dim <= 64"), ("hidden", "64 wide"),
+    ("out-dim", "out_dim <= 8"), ("too-few-inputs", "64 wide"),
+    ("layer-device", "layer 1 is on cpu")])
+def test_check_refuses_what_the_kernel_does_not_take(case, what):
+    """K3's limits (width 64, in_dim <= 64, out_dim <= 8, <= 16 levels,
+    <= 8 bins) are refused before any launch (meta tensors stand in for
+    the card's)."""
+    meta = dict(device="meta")
+    spec = tenc.HashGridSpec(n_levels=2, log2_table_size=8)
+    n_bins, out_dim = 4, 3
+    dims = [16, 64, 64, 3]
+    x5 = torch.zeros((8, 5), **meta)
+    table = torch.zeros(spec.total_params, dtype=torch.int32, **meta)
+    if case == "x5-f64":
+        x5 = x5.double()
+    elif case == "x5-4":
+        x5 = torch.zeros((8, 4), **meta)
+    elif case == "table-shape":
+        table = torch.zeros(spec.total_params + 1, dtype=torch.int32, **meta)
+    elif case == "levels":
+        spec = tenc.HashGridSpec(n_levels=17, log2_table_size=8)
+        table = torch.zeros(spec.total_params, dtype=torch.int32, **meta)
+    elif case == "bins":
+        n_bins = 9
+    elif case == "in-dim":
+        dims[0] = 80
+    elif case == "hidden":
+        dims[1:3] = [32, 32]
+    elif case == "out-dim":
+        dims[-1] = out_dim = 9
+    elif case == "too-few-inputs":
+        dims[0] = spec.out_dim + 2 * n_bins - 1
+    layers = [torch.zeros((a, b), **meta) for a, b in zip(dims, dims[1:])]
+    if case == "layer-device":
+        layers[1] = torch.zeros((64, 64))
+    with pytest.raises(ValueError, match=what):
+        fem._check(table, layers, x5, spec, n_bins, out_dim)

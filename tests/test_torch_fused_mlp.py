@@ -62,8 +62,9 @@ def test_plain_matches_jax_fused_mlp(in_dim):
     want = np.asarray(jfused({"layers": [jnp.asarray(w) for w in
                                          params["layers"]]},
                              jnp.asarray(feats)))
-    got = fm.fused_mlp_infer(params_from_jax({"encoding": {}, "mlp": params}
-                                             )["mlp"], torch.from_numpy(feats))
+    got = fm.fused_mlp_infer(params_from_jax({"encoding": {}, "mlp": params},
+                                             device="cpu")["mlp"],
+                             torch.from_numpy(feats))
     assert got.shape == want.shape == (2048, 3)
     err = np.abs(got.numpy() - want)
     assert err.max() <= 1e-2
@@ -119,7 +120,8 @@ def _infer_pair(pos, dir_, mlp_dtype, seed):
     x5 = np.random.RandomState(seed).uniform(-0.2, 1.2, (2048, 5)).astype(
         np.float32)
     want = np.asarray(jc.infer(st, jnp.asarray(x5)))
-    got = tc.infer(tc.state_from_params(params_from_jax(ema)),
+    got = tc.infer(tc.state_from_params(params_from_jax(ema, device="cpu"),
+                                        device="cpu"),
                    torch.from_numpy(x5)).numpy()
     assert got.shape == want.shape == (2048, 3)
     return got, want
@@ -152,7 +154,7 @@ def test_infer_dispatch(monkeypatch, pos, dir_, mlp_dtype, route):
         monkeypatch.setattr(tcache, name, lambda *a, fn=fn, name=name, **k:
                             calls.append(name) or fn(*a, **k))
     _, tc = _caches(pos, dir_, mlp_dtype)
-    st = tc.init_state(torch.Generator().manual_seed(0))
+    st = tc.init_state(torch.Generator().manual_seed(0), device="cpu")
     out = tc.infer(st, torch.rand(64, 5))
     assert out.shape == (64, 3) and torch.isfinite(out).all()
     want = {"K3": ["fused_encode_mlp_infer"], "K4": ["fused_mlp_infer"],
@@ -172,7 +174,7 @@ def test_train_step_non_hash_matches_jax(pos, dir_, mlp_dtype):
     target = rs.exponential(0.5, (256, 3)).astype(np.float32)
     jst = jc.init_state(jax.random.PRNGKey(6))
     jst = jc.train_step(jst, jnp.asarray(x5[:128]), jnp.asarray(target[:128]))
-    tst = state_from_jax(_np(jst))
+    tst = state_from_jax(_np(jst), device="cpu")
     assert tst.params["encoding"] == {} and tst.opt_state["mu"]["encoding"] \
         == {} and tst.opt_state["count"] == 1
     jst = jc.train_step(jst, jnp.asarray(x5[128:]), jnp.asarray(target[128:]))

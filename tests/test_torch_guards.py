@@ -3,6 +3,7 @@ its kernel wrappers take the plain path only for CPU tensors (launching
 nothing), refuse other devices, and chip_smoke.py refuses to run without
 a GPU."""
 
+import inspect
 import os
 import shutil
 import subprocess
@@ -52,9 +53,38 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
     assert '"ok": true' not in res.stdout
 
 
+def test_kernel_ab_refuses_without_gpu(tmp_path):
+    res = _run([os.path.join(ROOT, "kernel_ab.py"), str(tmp_path)], ROOT,
+               {"CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0
+    assert '"ms"' not in res.stdout
+
+
+def _entry_points():
+    from nrc_hpm_tpu_torch import camera, lights, ring_buffer, weights
+    from nrc_hpm_tpu_torch.models.nrc.cache import NeuralRadianceCache
+
+    return [Volume.from_dense, camera.Camera.create,
+            camera.Camera.reference_camera, lights.DirLight.create,
+            lights.PointLight.create, lights.HdrEnvMap.constant_white,
+            lights.HdrEnvMap.from_image, lights.lights_from_scene,
+            ring_buffer.RingBuffer.create, NeuralRadianceCache.init_state,
+            NeuralRadianceCache.state_from_params, weights.params_from_jax,
+            weights.state_from_jax, weights.ring_from_jax]
+
+
+@pytest.mark.parametrize("fn", _entry_points(),
+                         ids=lambda fn: fn.__qualname__)
+def test_entry_points_default_to_the_card(fn):
+    """A caller who names no device gets the GPU (or an error where there
+    is none), never a silent CPU run."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def _lanes(n=64):
     rs = np.random.RandomState(0)
-    vol = Volume.from_dense(rs.rand(8, 8, 8).astype(np.float32), 0.6, 0.8)
+    vol = Volume.from_dense(rs.rand(8, 8, 8).astype(np.float32), 0.6, 0.8,
+                            device="cpu")
     start = torch.from_numpy(rs.uniform(-3, 3, (n, 3)).astype(np.float32))
     d = torch.nn.functional.normalize(torch.from_numpy(
         rs.normal(size=(n, 3)).astype(np.float32)), dim=-1)

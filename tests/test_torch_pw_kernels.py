@@ -22,7 +22,7 @@ from nrc_hpm_tpu_torch.volume import Volume as TVolume
 def _volumes():
     data = np.random.RandomState(42).rand(8, 8, 8).astype(np.float32)
     return (JVolume.from_dense(data, 0.6, 0.8),
-            TVolume.from_dense(data, 0.6, 0.8))
+            TVolume.from_dense(data, 0.6, 0.8, device="cpu"))
 
 
 def _lanes(n, seed):
@@ -124,3 +124,117 @@ def test_events_e_base_continues_stream():
     assert torch.equal(rest["e_new"], one["e_new"]), \
         "the event depth is a sequential sum: halves equal the whole"
     assert torch.equal(torch.cat([half["t"], rest["t"]]), one["t"])
+
+
+def _walk_mirror(vol, start, d, tmax, seed_u, e_last, e_base, S, salt):
+    """K1's interval walk in sequential float32 numpy, in the kernel's
+    order (lanes side by side): the S event depths drawn in order; one
+    sweep of the intervals in which event s is finished, its interval count
+    and running sums recorded, at the first interval with E_s < rcum[c],
+    before that interval's terms are added; then every event's outputs,
+    from its record or, for an event the sweep did not finish (beyond the
+    segment), from the sums over all intervals."""
+    f32 = np.float32
+    lanes = _torch(start, d, tmax, seed_u)
+    sig, ctl, rcum, ccum, h = (
+        x.numpy() for x in pk._profile_plain(vol, *lanes[:3]))
+    seed64 = lanes[3].to(torch.int64) & 0xFFFFFFFF
+    C, n = pk.C, h.shape[0]
+    idx = np.arange(n)
+    Es, E = [], e_last.copy()
+    for s in range(S):
+        E = E - torch.log1p(-pk._uniform(seed64, e_base + s, salt)).numpy()
+        Es.append(E)
+    Es = np.stack(Es)
+    kacc, e_left, r_prev = (np.zeros(n, f32) for _ in range(3))
+    c_at, sig_at = ctl[0].copy(), sig[0].copy()
+    rec = np.zeros((4, S, n), f32)
+    done = np.zeros(n, np.int64)          # events finished so far
+    for c in range(C):
+        while True:
+            go = done < S
+            go[go] = Es[done[go], idx[go]] < rcum[c, idx[go]]
+            if not go.any():
+                break
+            i = idx[go]
+            rec[:, done[i], i] = kacc[i], e_left[i], c_at[i], sig_at[i]
+            done[i] += 1
+        kacc = kacc + f32(1.0)
+        e_left = e_left + (rcum[c] - r_prev)
+        c_at = c_at + (ctl[c + 1] - ctl[c])
+        sig_at = sig_at + (sig[c + 1] - sig[c])
+        r_prev = rcum[c]
+    inv, _, (X, Y, Z) = pk._scene(vol)
+    out = {k: [] for k in ("lin", "t", "c_at", "sres")}
+    for e in range(S):
+        beyond = e >= done
+        k, el, ca, sa = (np.where(beyond, fin, r[e]) for fin, r in
+                         zip((kacc, e_left, c_at, sig_at), rec))
+        sres = np.maximum(sa - ca, f32(1e-12))
+        rate_h = sres * h
+        t = k * h + (Es[e] - el) * h / np.maximum(rate_h, f32(1e-20))
+        t = np.where(beyond, f32(-1.0), t)
+        u = [(start[:, a] + t * d[:, a]) * f32(inv[a]) + f32(0.5)
+             for a in range(3)]
+        inside = np.all([(x >= 0) & (x < 1) for x in u], axis=0)
+        g = [np.clip(np.floor(x * f32(m)), f32(0), f32(m - 1))
+             for x, m in zip(u, (X, Y, Z))]
+        lin = (g[0] * f32(Y * Z) + g[1] * f32(Z) + g[2]).astype(np.int32)
+        out["lin"].append(np.where(inside & ~beyond, lin, -1))
+        out["t"].append(t)
+        out["c_at"].append(ca)
+        out["sres"].append(sres)
+    out = {k: np.stack(v) for k, v in out.items()}
+    out.update(e_new=E, rtot=rcum[-1], ctot=ccum[-1])
+    return out
+
+
+def _walk_case(case):
+    """(volume, lanes, e_last, e_base) of one walk case."""
+    start, d, tmax, seed_u, e_last = _lanes(256, 11)
+    data = np.random.RandomState(42).rand(8, 8, 8).astype(np.float32)
+    density, e_base = 0.6, 0
+    if case == "tmax0":
+        tmax[::2] = 0.0
+    elif case == "flat":
+        # empty macrocells (majorant = control = 0) beside dense ones
+        data = np.random.RandomState(42).rand(32, 32, 32).astype(np.float32)
+        data[:, :, :20] = 0.0
+    elif case == "beyond":
+        density = 1e-8
+    elif case == "e_last":
+        e_last, e_base = e_last * 4.0, 5
+    if case != "e_last":
+        e_last = np.zeros_like(e_last)
+    vol = TVolume.from_dense(data, density, 0.8, device="cpu")
+    return vol, (start, d, tmax, seed_u), e_last, e_base
+
+
+@pytest.mark.parametrize("salt", [pk.SALT_RATIO, pk.SALT_DELTA])
+@pytest.mark.parametrize("case", ["random", "tmax0", "flat", "beyond",
+                                  "e_last"])
+def test_interval_walk_is_bitwise_the_telescoping_sums(case, salt):
+    """The kernel's O(S + C) walk carries its sums from event to event; the
+    plain version's S x C telescoping loop adds +-0 beyond each event's
+    interval prefix.  The two agree bitwise on every output."""
+    vol, lanes, e_last, e_base = _walk_case(case)
+    S = 16
+    want = pk.pw_events_plain(vol, *_torch(*lanes), torch.from_numpy(e_last),
+                              e_base, S=S, salt=salt)
+    got = _walk_mirror(vol, *lanes, e_last, e_base, S, salt)
+    for k, w in want.items():
+        assert got[k].dtype == w.numpy().dtype, k
+        assert np.array_equal(got[k].view(np.int32),
+                              w.numpy().view(np.int32)), f"{k} bitwise"
+    t, rtot = want["t"].numpy(), want["rtot"].numpy()
+    # each case reaches what it is named for
+    if case == "tmax0":
+        assert (rtot[::2] == 0).all() and (t[:, ::2] == -1).all()
+    elif case == "flat":
+        _, _, rcum, _, _ = pk._profile_plain(vol, *_torch(*lanes)[:3])
+        steps = np.diff(rcum.numpy(), axis=0)
+        assert (steps == 0).mean() > 0.05 and (steps > 0).any()
+    elif case == "beyond":
+        assert (t == -1).all() and (want["lin"].numpy() == -1).all()
+    if case != "beyond":
+        assert (t >= 0).mean() > 0.1 and (t == -1).any()

@@ -22,8 +22,8 @@ def _same(tring, jring):
 
 
 def test_create_matches():
-    _same(trb.RingBuffer.create(CAP), jrb.RingBuffer.create(CAP))
-    assert trb.RingBuffer.create(0).capacity == 1
+    _same(trb.RingBuffer.create(CAP, device="cpu"), jrb.RingBuffer.create(CAP))
+    assert trb.RingBuffer.create(0, device="cpu").capacity == 1
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -32,7 +32,7 @@ def test_frames_of_pop_push_wrap_match(seed):
     frame into 40 slots: the cursors pass the capacity and wrap."""
     rs = np.random.RandomState(seed)
     jring = jrb.RingBuffer.create(CAP)
-    tring = trb.RingBuffer.create(CAP)
+    tring = trb.RingBuffer.create(CAP, device="cpu")
     most = 0
     for _ in range(6):
         jring, tring = jrb.ring_wrap(jring), trb.ring_wrap(tring)
@@ -55,7 +55,7 @@ def test_wraparound_slots():
     and then slots 0.., and the tail wraps the same way."""
     jring = jrb.RingBuffer.create(CAP).replace(head=jnp.int32(CAP - 3),
                                                tail=jnp.int32(CAP - 2))
-    tring = ring_from_jax(jring)
+    tring = ring_from_jax(jring, device="cpu")
     rec = np.arange(8 * 6, dtype=np.float32).reshape(8, 6)
     mask = np.array([1, 1, 0, 1, 1, 1, 0, 1], bool)
     jring = jrb.ring_push(jring, jnp.asarray(mask), jnp.asarray(rec))

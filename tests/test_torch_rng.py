@@ -50,7 +50,8 @@ def test_random_family_bitwise():
 
 def test_init_state_bitwise():
     _, _, uv_j = jcam.pixel_rays(jcam.Camera.reference_camera(48 / 27), 48, 27)
-    _, _, uv_t = tcam.pixel_rays(tcam.Camera.reference_camera(48 / 27), 48, 27)
+    _, _, uv_t = tcam.pixel_rays(
+        tcam.Camera.reference_camera(48 / 27, device="cpu"), 48, 27)
     assert np.array_equal(_bits(uv_j), _bits(uv_t.numpy())), \
         "frag_uv must agree bitwise"
     fr = np.array([0.125, 0.6180339, 0.91, 0.0031], np.float32)
@@ -101,7 +102,7 @@ def test_track_seed_bitwise():
 
 def test_pixel_rays_match():
     cj = jcam.Camera.reference_camera(16 / 9)
-    ct = tcam.Camera.reference_camera(16 / 9)
+    ct = tcam.Camera.reference_camera(16 / 9, device="cpu")
     assert np.array_equal(np.asarray(cj.inv_proj_view),
                           ct.inv_proj_view.numpy())
     _, rd_j, _ = jcam.pixel_rays(cj, 64, 36)

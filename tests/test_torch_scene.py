@@ -40,7 +40,7 @@ def test_procedural_cloud_properties(cloud):
 
 def test_volume_matches_jax(cloud):
     jv = jvol.Volume.from_dense(cloud, 0.6, 0.8)
-    tv = tvol.Volume.from_dense(cloud, 0.6, 0.8)
+    tv = tvol.Volume.from_dense(cloud, 0.6, 0.8, device="cpu")
     assert np.array_equal(tv.grid.numpy(), np.asarray(jv.grid))
     assert np.array_equal(tv.macro_packed.numpy().view(np.uint32),
                           np.asarray(jv.macro_packed)), "packed macro bitwise"
@@ -86,7 +86,8 @@ def test_configs_share_fields_and_defaults():
 @pytest.mark.parametrize("scene_id", range(6))
 def test_lights_match(scene_id):
     lj = jlights.lights_from_scene(jcfg.SceneConfig.preset(scene_id))
-    lt = tlights.lights_from_scene(tcfg.SceneConfig.preset(scene_id))
+    lt = tlights.lights_from_scene(tcfg.SceneConfig.preset(scene_id),
+                                   device="cpu")
     assert np.array_equal(lt.dir_light.direction.numpy(),
                           np.asarray(lj.dir_light.direction))
     assert lt.dir_light.strength == float(lj.dir_light.strength)
@@ -103,9 +104,9 @@ def test_env_map_sampling_matches():
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     img = rs.rand(8, 16, 3).astype(np.float32)
     for jenv, tenv in ((jlights.HdrEnvMap.constant_white(0.1),
-                        tlights.HdrEnvMap.constant_white(0.1)),
+                        tlights.HdrEnvMap.constant_white(0.1, device="cpu")),
                        (jlights.HdrEnvMap.from_image(img, 2.0),
-                        tlights.HdrEnvMap.from_image(img, 2.0))):
+                        tlights.HdrEnvMap.from_image(img, 2.0, device="cpu"))):
         want = jlights.sample_env_map(jenv, jnp.asarray(d))
         got = tlights.sample_env_map(tenv, torch.from_numpy(d))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,

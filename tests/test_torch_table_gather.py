@@ -46,13 +46,13 @@ def cloud():
     """The procedural cloud: its macro table holds 3,520 words."""
     data = cloud_density(seed=0)
     return (jvol.Volume.from_dense(data, 0.6, 0.8),
-            tvol.Volume.from_dense(data, 0.6, 0.8))
+            tvol.Volume.from_dense(data, 0.6, 0.8, device="cpu"))
 
 
 def _small():
     data = np.random.RandomState(42).rand(8, 8, 8).astype(np.float32)
     return (jvol.Volume.from_dense(data, 0.6, 0.8),
-            tvol.Volume.from_dense(data, 0.6, 0.8))
+            tvol.Volume.from_dense(data, 0.6, 0.8, device="cpu"))
 
 
 def _u32(a):
@@ -288,7 +288,8 @@ def test_trace_fixed_per_interval_matches_jax(coarse):
     jres = jint.trace_fixed(jnp.asarray(state), jv, jlights(scene), jp,
                             jnp.asarray(ro), jnp.asarray(rd), 8)
     tres = tint.trace_fixed(torch.from_numpy(state), tv,
-                            lights_from_scene(tcfg.SceneConfig.preset(4)), tp,
+                            lights_from_scene(tcfg.SceneConfig.preset(4),
+                                              device="cpu"), tp,
                             torch.from_numpy(ro), torch.from_numpy(rd), 8)
     assert np.array_equal(_u32(jres["state"]), _u32(tres["state"].numpy()))
     alive = tres["alive"].numpy()

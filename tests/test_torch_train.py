@@ -227,8 +227,8 @@ def test_loss_and_grads_match(log2):
                           jnp.asarray(target))
 
     jloss, jgrads = jax.value_and_grad(loss_of)(st.params)
-    tloss, tgrads = tc.loss_and_grads(params_from_jax(_np(st.params)),
-                                      _t(x5), _t(target))
+    tloss, tgrads = tc.loss_and_grads(
+        params_from_jax(_np(st.params), device="cpu"), _t(x5), _t(target))
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
     for g, w in zip(tcache.tree_leaves(tgrads), jax.tree.leaves(jgrads)):
         g, w = g.numpy(), np.asarray(w)
@@ -252,7 +252,7 @@ def test_optimizer_and_ema_from_identical_grads(opt):
         else optax.sgd(0.01)
     jp = jax.tree.map(jnp.asarray, params)
     jstate = jopt.init(jp)
-    tp = params_from_jax(params)
+    tp = params_from_jax(params, device="cpu")
     tstate = tcache.adam_init(tp) if opt == "adam" else {}
     update = tcache.adam_update if opt == "adam" else tcache.sgd_update
     for _ in range(3):
@@ -260,7 +260,7 @@ def test_optimizer_and_ema_from_identical_grads(opt):
         g["mlp"]["layers"][0][:4] = 0.0          # untouched rows
         upd, jstate = jopt.update(jax.tree.map(jnp.asarray, g), jstate, jp)
         jp = optax.apply_updates(jp, upd)
-        tp, tstate = update(params_from_jax(g), tstate, tp, 0.01)
+        tp, tstate = update(params_from_jax(g, device="cpu"), tstate, tp, 0.01)
     _leaves_close(tp, jp, 1e-6, 1e-9, 1.0, "params")
     if opt == "adam":
         assert tstate["count"] == int(jstate[0].count) == 3
@@ -273,7 +273,8 @@ def test_optimizer_and_ema_from_identical_grads(opt):
         new = 1.0 / (1.0 - jnp.power(d, t + 1.0))
         want = jax.tree.map(lambda e, p: (e * d * old + p * (1.0 - d)) * new,
                             jax.tree.map(jnp.asarray, ema), jp)
-        got = tcache.ema_update(params_from_jax(ema), tp, d, step)
+        got = tcache.ema_update(params_from_jax(ema, device="cpu"), tp, d,
+                                step)
         _leaves_close(got, want, 1e-6, 1e-9, 1.0, f"ema step {step}")
 
 
@@ -287,7 +288,7 @@ def test_train_step_and_frame_match(opt, log2):
     x5, target = _x5_target(256, 7)
     jst = jc.train_step(_unit_state(jc, 8), jnp.asarray(x5[:128]),
                         jnp.asarray(target[:128]))
-    tst = state_from_jax(_np(jst))
+    tst = state_from_jax(_np(jst), device="cpu")
     assert tst.step == 1 and tst.opt_state.get("count", 1) == 1
     for fn in ("train_step", "train_frame"):
         jst = getattr(jc, fn)(jst, jnp.asarray(x5), jnp.asarray(target))
@@ -315,7 +316,7 @@ W, H = 48, 27
 def _volumes():
     data = np.random.RandomState(42).rand(8, 8, 8).astype(np.float32)
     return (JVolume.from_dense(data, 0.6, 0.8),
-            TVolume.from_dense(data, 0.6, 0.8))
+            TVolume.from_dense(data, 0.6, 0.8, device="cpu"))
 
 
 @pytest.mark.parametrize("spp,staged", [(1, False), (2, False), (2, True)])
@@ -337,7 +338,8 @@ def test_trace_fixed_matches_jax(monkeypatch, spp, staged):
     rd /= np.linalg.norm(rd, axis=1, keepdims=True)
     state = rs.rand(N).astype(np.float32)
     jstate, tstate = jnp.asarray(state), _t(state)
-    jl, tl = jlights(scene), lights_from_scene(tcfg.SceneConfig.preset(4))
+    jl = jlights(scene)
+    tl = lights_from_scene(tcfg.SceneConfig.preset(4), device="cpu")
     for _ in range(spp):
         jres = jint.trace_fixed(jstate, jv, jl, jp, jnp.asarray(ro),
                                 jnp.asarray(rd), 8)
@@ -380,9 +382,9 @@ def test_two_train_frames_match(bootstrap):
     tr = tren.NrcRenderer(tc, vol=tv)
     assert (tr.train_w, tr.train_h, tr.train_x_dist, tr.train_y_dist) == \
         (jr.train_w, jr.train_h, jr.train_x_dist, jr.train_y_dist)
-    ts = tr.init_state(0, nrc=state_from_jax(_np(js.nrc)))
+    ts = tr.init_state(0, nrc=state_from_jax(_np(js.nrc), device="cpu"))
     cam_j = jcam.Camera.reference_camera(W / H)
-    cam_t = tcam.Camera.reference_camera(W / H)
+    cam_t = tcam.Camera.reference_camera(W / H, device="cpu")
     key = js.key
     for frame in range(2):
         key, sub = jax.random.split(key)

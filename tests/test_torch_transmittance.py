@@ -26,7 +26,7 @@ N = 1024
 def _volumes():
     data = np.random.RandomState(42).rand(8, 8, 8).astype(np.float32)
     return (JVolume.from_dense(data, 0.6, 0.8),
-            TVolume.from_dense(data, 0.6, 0.8))
+            TVolume.from_dense(data, 0.6, 0.8, device="cpu"))
 
 
 def _rays(seed):
