@@ -6,8 +6,9 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nrc_hpm_tpu_torch/csrc`` (one nvcc per
-source, in parallel; ptxas's registers and spills per kernel, K1 must not
-spill; the tensor-core instructions in K3's SASS, which must exist),
+source, in parallel; ptxas's registers and spills per kernel, K1 and K2
+must not spill; the tensor-core instructions in K3's SASS, which must
+exist),
 checks each kernel against its plain PyTorch version at the main paths'
 shapes and times it by its device time in torch.profiler beside its bound
 (K1/K2 also at 65,536 and 1,024 lanes), then drives the NRC frame on a
@@ -133,6 +134,8 @@ F32_OPS_S = 67e12
 # log1p, walk steps, inversion, fine cell); and per (sample, level) of the
 # hash-grid encode (cell, 8 corner weights and indices, 16 products/sums)
 LOOKUP_OPS, INTERVAL_OPS, EVENT_OPS, LEVEL_OPS = 30, 14, 60, 150
+# kernels whose every instance must not spill registers
+NO_SPILL = ("pw_events_kernel", "pw_profile_kernel")
 # the kernel of each wrapper, by the name the profiler shows
 KERNEL_NAMES = dict(pw_events="pw_events_kernel",
                     pw_profile="pw_profile_kernel",
@@ -199,25 +202,27 @@ def busy_ms(torch, prof) -> float:
     return total / 1e3
 
 
-def device_ms(torch, fn, name: str, reps: int = REPS) -> float:
+def device_ms(torch, fn, name: str, reps: int = REPS, kernel=None) -> float:
     """Milliseconds of device time per call of ``fn`` spent in the kernel
-    ``KERNEL_NAMES[name]``, from torch.profiler over ``reps`` calls after a
-    warm-up (the kernel alone: no launch gaps, no set-up kernels of the
-    wrapper)."""
+    ``KERNEL_NAMES[name]`` (or in those whose name holds ``kernel``), from
+    torch.profiler over ``reps`` calls after a warm-up (the kernel alone:
+    no launch gaps, no set-up kernels of the wrapper).  A trace that lost
+    the kernel's events is taken again, up to three times in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    ms = sum(t for key, t, _ in device_rows(torch, prof)
-             if KERNEL_NAMES[name] in key)
-    if ms <= 0:
-        raise AssertionError(f"{name}: the profiler saw no device time")
-    return ms / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        want = KERNEL_NAMES[name] if kernel is None else kernel
+        ms = sum(t for key, t, _ in device_rows(torch, prof) if want in key)
+        if ms > 0:
+            return ms / reps
+    raise AssertionError(f"{name}: the profiler saw no device time")
 
 
 def bound(n_bytes: float, bf16_ops: float = 0.0, f32_ops: float = 0.0):
@@ -229,13 +234,14 @@ def bound(n_bytes: float, bf16_ops: float = 0.0, f32_ops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def pw_bound(n: int, n_macro: int, S: int = 0):
-    """K1 (S events) or K2 (S = 0: the control draw) on n lanes: per lane
-    the 32 bytes of start/direction/tmax/seed read, K1's e_last read and
-    16 bytes per event plus e_new/rtot/ctot written, K2's rtot/ctot/t_ctrl
-    written; the macro table read once."""
+def pw_bound(n: int, n_macro: int, S: int = 0, draw: bool = True):
+    """K1 (S events) or K2 (S = 0: the control draw, none without
+    ``draw``) on n lanes: per lane the 32 bytes of start/direction/tmax/
+    seed read, K1's e_last read and 16 bytes per event plus e_new/rtot/ctot
+    written, K2's rtot/ctot/t_ctrl written; the macro table read once."""
     per_lane = 32 + (4 + 16 * S + 12 if S else 12)
-    ops = 33 * LOOKUP_OPS + 32 * INTERVAL_OPS + max(S, 1) * EVENT_OPS
+    ops = (33 * LOOKUP_OPS + 32 * INTERVAL_OPS
+           + (S or int(draw)) * EVENT_OPS)
     return bound(n * per_lane + 4 * n_macro, f32_ops=n * ops)
 
 
@@ -322,8 +328,9 @@ def compare(torch, name, got: dict, want: dict, rtol, atol, max_bad,
 def build() -> dict:
     """Build every library, one nvcc each, all started together (timed);
     print ptxas's registers and spills for each kernel and the tensor-core
-    (HMMA) instructions of K3's library.  K1 must not spill and K3 must run
-    on the tensor cores.  Returns the library path of each source."""
+    (HMMA) instructions of K3's library.  K1 and K2 must not spill and K3
+    must run on the tensor cores.  Returns the library path of each
+    source."""
     from nrc_hpm_tpu_torch.ops import (_build, fused_encode_mlp, fused_mlp,
                                        hash_grid_train, pw_kernels,
                                        table_gather)
@@ -344,19 +351,22 @@ def build() -> dict:
                      for job, (_, s) in zip(jobs, done))
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, "
           f"{len(jobs)} builds in parallel; done after: {each})")
-    regs = {}
+    spills = {}
     for so, _ in done:
         log = so.with_suffix(".log")
         for kern, (n_regs, st, ld) in ptxas_kernels(
                 log.read_text() if log.exists() else "").items():
             short = next((k for k in KERNEL_NAMES.values() if k in kern),
                          kern)
-            regs[short] = (n_regs, st, ld)
+            spills[short] = max(spills.get(short, 0), st + ld)
+            inst = {"ILb0E": "<false>", "ILb1E": "<true>"}
+            short += next((v for k, v in inst.items() if k in kern), "")
             print(f"ptxas {so.name} {short}: {n_regs} registers, spill "
                   f"stores {st} B, spill loads {ld} B")
-    if regs.get("pw_events_kernel", (0, 1, 1))[1:] != (0, 0):
-        raise AssertionError("pw_events_kernel spills (or was not found in "
-                             "the ptxas log)")
+    for kern in NO_SPILL:
+        if spills.get(kern, 1) != 0:
+            raise AssertionError(f"{kern} spills (or was not found in the "
+                                 f"ptxas log)")
     libs = {job[0]: so for job, (so, _) in zip(jobs, done)}
     hmma = gpu_sass_count(libs[fused_encode_mlp._LIB], "HMMA")
     print(f"SASS of {libs[fused_encode_mlp._LIB].name}: {hmma} HMMA "
@@ -431,14 +441,18 @@ def kernel_phase(torch, dev, vol, cfg) -> list:
     src_pw = "nrc_hpm_tpu_torch/csrc/pw_kernels.cu"
     n_macro = vol.macro_packed.numel()
     args = (vol, start, rd, tmax, seed)
-    err = compare(torch, "pw_profile",
-                  pk.pw_profile(*args, want_ctrl=True),
-                  pk.pw_profile_plain(*args, want_ctrl=True), **PW_TOL)
+    # both instances of K2: with the control draw (delta tracking) and
+    # without it (ratio tracking)
+    err = max(compare(torch, f"pw_profile want_ctrl={ctrl}",
+                      pk.pw_profile(*args, want_ctrl=ctrl),
+                      pk.pw_profile_plain(*args, want_ctrl=ctrl), **PW_TOL)
+              for ctrl in (True, False))
     pw_ms = pw_times(torch, pk, args, e_last)
     row("pw_profile", src_pw, "nrc_hpm_tpu/ops/pw_kernels.py:231", err,
         pw_ms[("pw_profile", N_LANES)],
         time_ms(torch, lambda: pk.pw_profile_plain(*args, want_ctrl=True)),
         pw_bound(N_LANES, n_macro))
+    rows[-1]["no_ctrl_ms"] = pw_ms[("pw_profile no ctrl", N_LANES)]
     err = 0.0
     for salt in (pk.SALT_RATIO, pk.SALT_DELTA):
         err = max(err, compare(
@@ -478,19 +492,24 @@ def kernel_phase(torch, dev, vol, cfg) -> list:
 
 
 def pw_times(torch, pk, args, e_last) -> dict:
-    """K1 (S = 16) and K2 (with the control draw) device times on the
-    first m of the lanes, m in PW_TIME_LANES."""
+    """K1 (S = 16) and K2 (with the control draw, and without it as
+    "pw_profile no ctrl") device times on the first m of the lanes, m in
+    PW_TIME_LANES."""
     out = {}
     n_macro = args[0].macro_packed.numel()
     for m in PW_TIME_LANES:
         sub = (args[0],) + tuple(a[:m] for a in args[1:])
-        for name, fn, bnd in (
+        for label, fn, bnd in (
                 ("pw_events", lambda: pk.pw_events(*sub, e_last[:m], 0, S=16),
                  pw_bound(m, n_macro, 16)),
                 ("pw_profile", lambda: pk.pw_profile(*sub, want_ctrl=True),
-                 pw_bound(m, n_macro))):
-            out[(name, m)] = device_ms(torch, fn, name)
-            print(f"{name} {m} lanes: kernel {out[(name, m)]:.4f} ms "
+                 pw_bound(m, n_macro)),
+                ("pw_profile no ctrl",
+                 lambda: pk.pw_profile(*sub, want_ctrl=False),
+                 pw_bound(m, n_macro, draw=False))):
+            name = label.split()[0]
+            out[(label, m)] = device_ms(torch, fn, name)
+            print(f"{label} {m} lanes: kernel {out[(label, m)]:.4f} ms "
                   f"(device), wrapper call {time_ms(torch, fn):.4f} ms, "
                   f"bound {bnd[0]:.4f} ms ({bnd[1]}), clocks {sm_clock()}")
     return out
@@ -598,12 +617,27 @@ def mlp_and_lookup_kernels(torch, dev, vol, cfg, gen) -> list:
     return rows
 
 
+def repeating_positions(torch, n: int, gen):
+    """n box positions (on the CPU) that repeat as a frame's train batch
+    does: each 32 consecutive samples lie within 2e-3 of one random point,
+    and every third position is the one before it."""
+    centers = torch.rand((n // 32 + 1, 3), generator=gen) * 0.8 + 0.1
+    x = centers[torch.arange(n) // 32] + (
+        torch.rand((n, 3), generator=gen) * 4e-3 - 2e-3)
+    x[2::3] = x[1::3][:x[2::3].shape[0]]
+    return x
+
+
 def train_encode_phase(torch, dev, cfg, gen) -> list:
     """K7 forward and backward against their plain versions: the float32
     table at the default 2^19 per level and the packed table at the
-    tpu_tuned 2^12, one train batch and 2^20 samples, unit-scale tables.
+    tpu_tuned 2^12, one train batch and 2^20 samples, unit-scale tables;
+    the backward also on one train batch of repeating positions.
     The rows carry the 2^19 float32 times at 2^20 samples (the default
-    configuration's route)."""
+    configuration's route) and at one train batch (``train_batch_ms``);
+    the backward's bound counts the rows it touches, and ``zeros_ms`` /
+    ``zeros_bound_ms`` time and bound the wrapper's torch.zeros of the
+    whole gradient, which runs before it."""
     from nrc_hpm_tpu_torch.config import AppConfig
     from nrc_hpm_tpu_torch.models.nrc.encoding import (CompositeEncoding,
                                                        pack_table_bf16)
@@ -640,6 +674,14 @@ def train_encode_phase(torch, dev, cfg, gen) -> list:
                     dict(dtable=hgt.hash_grid_train_bwd(*bargs)),
                     dict(dtable=hgt.hash_grid_train_bwd_plain(*bargs)),
                     scale=dict(dtable=s), **K7_BWD_TOL))
+            # the backward writes only the rows its lookups touch; the
+            # wrapper's torch.zeros writes the whole (P, 2) gradient first
+            touched = int((s.sum(-1) > 0).sum())
+            zeros_ms = bound(8 * spec.total_params)[0]
+            zeros_dev = device_ms(
+                torch, lambda: torch.zeros((spec.total_params, 2),
+                                           device=dev), "torch.zeros",
+                kernel="")
             for name, fn, plain, args in (
                     ("hash_grid_train_fwd", hgt.hash_grid_train_fwd,
                      hgt.hash_grid_train_fwd_plain, fargs),
@@ -648,22 +690,51 @@ def train_encode_phase(torch, dev, cfg, gen) -> list:
                 ms = device_ms(torch, lambda: fn(*args), name)
                 plain_ms = time_ms(torch, lambda: plain(*args))
                 # x and the (N, L, 2) features or their gradient once; the
-                # table read (forward) or its gradient written (backward)
+                # table read (forward) or the touched rows of its gradient
+                # written (backward)
+                fwd = name.endswith("fwd")
                 bnd = bound(12 * n + 8 * n * spec.n_levels
-                            + (4 if packed and name.endswith("fwd") else 8)
-                            * spec.total_params,
+                            + ((4 if packed else 8) * spec.total_params
+                               if fwd else 8 * touched),
                             f32_ops=n * spec.n_levels * LEVEL_OPS)
+                zeros = "" if fwd else (
+                    f" ({touched} rows touched; the wrapper's torch.zeros "
+                    f"of the {8 * spec.total_params / 1e6:.1f} MB gradient "
+                    f"before it: {zeros_dev:.4f} ms (device), bound "
+                    f"{zeros_ms:.4f} ms)")
                 print(f"{name} {tag} n={n}: kernel {ms:.4f} ms (device), "
                       f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
-                      f"({bnd[1]})")
-                times[(name, packed, n)] = (ms, plain_ms, bnd)
+                      f"({bnd[1]}){zeros}")
+                times[(name, packed, n)] = (ms, plain_ms, bnd, zeros_ms,
+                                            zeros_dev)
+        # one train batch that repeats positions, as a frame's does: the
+        # lanes of a warp share rows on every level, so the backward's
+        # __match_any_sync groups carry the work
+        x = repeating_positions(torch, N_TRAIN, gen).to(dev)
+        g = torch.randn((N_TRAIN, spec.out_dim), generator=gen).to(dev)
+        bargs = (x, g, spec, packed)
+        s = hgt.hash_grid_train_bwd_plain(x, g.abs(), spec, packed)
+        errs["hash_grid_train_bwd"] = max(
+            errs["hash_grid_train_bwd"], compare(
+                torch, f"hash_grid_train_bwd {tag} n={N_TRAIN} repeating",
+                dict(dtable=hgt.hash_grid_train_bwd(*bargs)),
+                dict(dtable=hgt.hash_grid_train_bwd_plain(*bargs)),
+                scale=dict(dtable=s), **K7_BWD_TOL))
+        ms = device_ms(torch, lambda: hgt.hash_grid_train_bwd(*bargs),
+                       "hash_grid_train_bwd")
+        print(f"hash_grid_train_bwd {tag} n={N_TRAIN} repeating positions: "
+              f"kernel {ms:.4f} ms (device), {int((s.sum(-1) > 0).sum())} "
+              f"rows touched")
     rows = []
     for name in ("hash_grid_train_fwd", "hash_grid_train_bwd"):
-        ms, plain_ms, bnd = times[(name, False, N_TIME)]
-        rows.append(dict(name=name, route="cuda", source=src,
-                         replaces=replaces, max_abs_err=errs[name], ms=ms,
-                         plain_ms=plain_ms, bound_ms=bnd[0],
-                         bound_by=bnd[1], library_ms=None))
+        ms, plain_ms, bnd, zeros_ms, zeros_dev = times[(name, False, N_TIME)]
+        row = dict(name=name, route="cuda", source=src, replaces=replaces,
+                   max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                   bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                   train_batch_ms=times[(name, False, N_TRAIN)][0])
+        if name.endswith("bwd"):
+            row.update(zeros_ms=zeros_dev, zeros_bound_ms=zeros_ms)
+        rows.append(row)
     return rows
 
 

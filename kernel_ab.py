@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time kernels K1 (``pw_events``) and K3 (``fused_encode_mlp_infer``) of
-this checkout against those of another checkout of the port on one GPU.
+"""Time kernels K1 (``pw_events``), K2 (``pw_profile``), K3
+(``fused_encode_mlp_infer``) and K7' (``hash_grid_train_bwd``) of this
+checkout against those of another checkout of the port on one GPU.
 
     git archive <commit> nrc_hpm_tpu_torch | tar -x -C _checkout/other
     python3 kernel_ab.py _checkout/other
@@ -8,11 +9,15 @@ this checkout against those of another checkout of the port on one GPU.
 The other checkout's ``nrc_hpm_tpu_torch`` package is imported under
 another name and builds its own kernels into its own ``_build/``.  Both
 take the inputs of ``chip_smoke.py``'s kernel phase (camera rays through
-the procedural cloud for K1, S = 16; a unit-scale 2^19 table and random
-inputs for K3) and are timed in turns, other, this, this, other, by their
-device time in torch.profiler: K1 on 2^20, 65,536 and 1,024 lanes, K3 on
-2^20 samples and on a 1080p online frame's count.  Each result is checked against this checkout's
-plain version first.  Prints the card's name and power limit, one line per
+the procedural cloud for K1, S = 16, and K2; a unit-scale 2^19 table and
+random inputs for K3; random positions and gradients for K7') and are
+timed in turns, other, this, this, other, by their device time in
+torch.profiler: K1, and K2 with and without the control draw, on 2^20,
+65,536 and 1,024 lanes; K3 on 2^20 samples and on a 1080p online frame's
+count; K7' on 2^14 (one Adam step's batch) and 2^20 random samples at the
+float32 2^19 and the packed 2^12 tables, and on the first train batch of
+a second online 1080p frame (float32 2^19).  Each result is
+checked against this checkout's plain version first.  Prints the card's name and power limit, one line per
 shape and a JSON summary; without a CUDA device it exits with code 1.
 """
 
@@ -28,6 +33,38 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # K3 at 2^20 samples and at the 293,441 scattered samples that
 # chip_smoke.py's profiled online frame infers
 K3_SAMPLES = (1 << 20, 293_441)
+# K7' (packed, samples) on random positions: the float32 2^19 table of
+# AppConfig() and the packed 2^12 table of AppConfig.tpu_tuned(), each at
+# one train batch and at 2^20
+K7_CASES = ((False, 1 << 14), (False, 1 << 20), (True, 1 << 14),
+            (True, 1 << 20))
+
+
+def frame_batch(torch, dev, cfg, vol, hgt):
+    """(x, gout) of the first K7' launch of the second online 1080p frame
+    at ``cfg``, rendered by this checkout: a train batch that repeats
+    positions as frames do."""
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.renderer import NrcRenderer
+
+    seen = []
+    bwd = hgt.hash_grid_train_bwd
+
+    def record(x, gout, spec, packed):
+        seen.append((x.clone(), gout.clone()))
+        return bwd(x, gout, spec, packed)
+
+    record.launches = 0          # the wrapper counts on its module's name
+    hgt.hash_grid_train_bwd = record
+    try:
+        r = NrcRenderer(cfg, vol)
+        cam = Camera.reference_camera(aspect=r.width / r.height, device=dev)
+        state = r.step(r.init_state(seed=0), cam)
+        seen.clear()
+        r.step(state, cam)
+    finally:
+        hgt.hash_grid_train_bwd = bwd
+    return seen[0]
 
 
 def import_other(path: str):
@@ -55,13 +92,16 @@ def main(argv) -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from nrc_hpm_tpu_torch.config import AppConfig
+    from nrc_hpm_tpu_torch.models.nrc.encoding import CompositeEncoding
     from nrc_hpm_tpu_torch.ops import fused_encode_mlp as fem
+    from nrc_hpm_tpu_torch.ops import hash_grid_train as hgt
     from nrc_hpm_tpu_torch.ops import pw_kernels as pk
     from nrc_hpm_tpu_torch.utils.procedural import cloud_density
     from nrc_hpm_tpu_torch.volume import Volume
 
     import_other(argv[0])
     from nrc_other.ops import fused_encode_mlp as fem_o
+    from nrc_other.ops import hash_grid_train as hgt_o
     from nrc_other.ops import pw_kernels as pk_o
 
     dev = torch.device("cuda", 0)
@@ -78,6 +118,12 @@ def main(argv) -> int:
     for label, mod in (("other", pk_o), ("this", pk)):
         cs.compare(torch, f"pw_events {label}", mod.pw_events(*args, S=16),
                    want, **cs.PW_TOL)
+    for ctrl in (True, False):
+        want = pk.pw_profile_plain(*args[:5], want_ctrl=ctrl)
+        for label, mod in (("other", pk_o), ("this", pk)):
+            cs.compare(torch, f"pw_profile want_ctrl={ctrl} {label}",
+                       mod.pw_profile(*args[:5], want_ctrl=ctrl), want,
+                       **cs.PW_TOL)
     want = dict(out=fem.fused_encode_mlp_plain(*fargs))
     for label, mod in (("other", fem_o), ("this", fem)):
         cs.compare(torch, f"fused_encode_mlp {label}",
@@ -90,11 +136,42 @@ def main(argv) -> int:
         cases.append((f"pw_events {m} lanes", "pw_events",
                       lambda mod, sub=sub: mod.pw_events(*sub, S=16),
                       (pk_o, pk)))
+        for ctrl in (True, False):
+            cases.append((f"pw_profile want_ctrl={ctrl} {m} lanes",
+                          "pw_profile",
+                          lambda mod, sub=sub, ctrl=ctrl: mod.pw_profile(
+                              *sub[:5], want_ctrl=ctrl), (pk_o, pk)))
     for n in K3_SAMPLES:
         k3 = (fargs[0], fargs[1], fargs[2][:n], fargs[3])
         cases.append((f"fused_encode_mlp {n} samples", "fused_encode_mlp",
                       lambda mod, k3=k3: mod.fused_encode_mlp_infer(*k3),
                       (fem_o, fem)))
+    k7 = []
+    for packed, n in K7_CASES:
+        enc = (AppConfig.tpu_tuned() if packed else cfg).encoding
+        spec = CompositeEncoding(enc).grid_spec
+        x = (torch.rand((n, 3), generator=gen) * 1.2 - 0.1).to(dev)
+        g = torch.randn((n, spec.out_dim), generator=gen).to(dev)
+        k7.append((packed, enc, f"{n} samples", (x, g, spec, packed)))
+    x, g = frame_batch(torch, dev, cfg, vol, hgt)
+    k7.append((False, cfg.encoding, "a frame's batch",
+               (x, g, CompositeEncoding(cfg.encoding).grid_spec, False)))
+    for packed, enc, what, bargs in k7:
+        x, g, spec, _ = bargs
+        n = x.shape[0]
+        tag = (f"{'packed' if packed else 'float32'} "
+               f"2^{enc.log2_hashmap_size}")
+        want = dict(dtable=hgt.hash_grid_train_bwd_plain(*bargs))
+        scale = dict(dtable=hgt.hash_grid_train_bwd_plain(x, g.abs(), spec,
+                                                          packed))
+        for label, mod in (("other", hgt_o), ("this", hgt)):
+            cs.compare(torch, f"hash_grid_train_bwd {tag} n={n} {label}",
+                       dict(dtable=mod.hash_grid_train_bwd(*bargs)), want,
+                       scale=scale, **cs.K7_BWD_TOL)
+        cases.append((f"hash_grid_train_bwd {tag} {what}",
+                       "hash_grid_train_bwd",
+                       lambda mod, bargs=bargs: mod.hash_grid_train_bwd(
+                           *bargs), (hgt_o, hgt)))
     out = {}
     for label, name, fn, (other, this) in cases:
         times = {"other": [], "this": []}

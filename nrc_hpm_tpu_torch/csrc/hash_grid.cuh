@@ -90,4 +90,28 @@ __device__ __forceinline__ uint32_t corner_index(const Cell& cell, int c,
   return hsh % params;
 }
 
+// The mask that takes a hash modulo params: params - 1 where params is a
+// power of two (hsh & (params - 1) == hsh % params, bit for bit), else 0
+// (take the modulo).
+__device__ __forceinline__ uint32_t hash_mask(uint32_t params) {
+  return (params & (params - 1)) == 0 ? params - 1 : 0u;
+}
+
+// corner_index for a caller whose level is uniform across the warp (K7's
+// backward): the same row, with the hashed level's modulo taken by its
+// hash_mask where it has one.
+__device__ __forceinline__ uint32_t level_corner_index(const Cell& cell,
+                                                       int c, int res,
+                                                       bool dense,
+                                                       uint32_t params,
+                                                       uint32_t mask) {
+  if (dense) return corner_index(cell, c, res, 1, params);
+  const int cx = cell.x0 + ((c >> 2) & 1);
+  const int cy = cell.y0 + ((c >> 1) & 1);
+  const int cz = cell.z0 + (c & 1);
+  const uint32_t hsh = (uint32_t)cx ^ ((uint32_t)cy * 2654435761u) ^
+                       ((uint32_t)cz * 805459861u);
+  return mask ? hsh & mask : hsh % params;
+}
+
 }  // namespace hash_grid

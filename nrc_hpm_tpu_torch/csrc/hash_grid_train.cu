@@ -13,17 +13,33 @@
 // hash_grid_encode_train forward); otherwise the (P, 2) float32 table (the
 // JAX hash_grid_encode, used for tables above 2^16 entries per level).
 //
-// Backward: the same threads add w * g into a zeroed (P, 2) float32
-// gradient with one float2 atomicAdd per corner.  Under PACKED each w * g
-// is rounded to bf16 first, as the JAX backward casts its operand to bf16
-// before an f32-accumulated matmul.  x gets no gradient.
+// Backward: w * g is added into a zeroed (P, 2) float32 gradient with
+// atomics.  Under PACKED each w * g is rounded to bf16 first, as the JAX
+// backward casts its operand to bf16 before an f32-accumulated matmul.  x
+// gets no gradient.  Its layout follows tiny-cuda-nn's grid-encoding
+// backward, a block of samples of one level, so a warp is 32 samples of
+// one level: the level's constants and its dense or hashed branch are
+// uniform across the warp, indices are 32-bit, and a hashed level of 2^k
+// rows takes its modulo as a mask.  The levels run from the last one down:
+// the wrapper's torch.zeros has just written the table front to back, and
+// its tail is the part still in L2.  A gradient the L2 holds whole (the
+// packed tables) has few rows a level, so there a wave of blocks spans the
+// levels rather than queueing its atomics on one level's rows.
 //
-// What bounds them on the H100: per sample and level 8 random 4- or
-// 8-byte reads (forward) or atomics (backward) into a table that stays in
-// the 50 MB L2 (2^19 entries per level: 57 MB of float32 pairs over all
-// levels, mostly resident); the coarse dense levels take many atomics on
-// few rows.  The simple design leaves both to the L2: no shared-memory
-// staging, no warp-level pre-reduction of colliding atomics.
+// What bounds the backward on the H100 is the atomics, not the arithmetic
+// (without them a level-uniform kernel took 4.5 us of 70 at 2^14 random
+// samples on an H100 80GB HBM3): their count, the rows they share, and the
+// sectors of a 57 MB gradient (2^19 entries a level) they pull into the
+// 50 MB L2.  So each sample adds its corner c
+// and x-neighbour c + 4 together, as one 16-byte atomic where their rows
+// are the two halves of an aligned pair (an even hashed x0 flips only the
+// hash's low bit, an even dense row has its neighbour next to it); and the
+// lanes of a warp that add into one row, or one pair, form a group
+// (__match_any_sync) whose lowest lane adds the group's sum, its terms
+// taken in lane order after rounding.  A frame's own train batch repeats
+// positions, so a warp's samples share rows on every level.
+//
+// The forward leaves its gathers to the L2 (no shared-memory staging).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,6 +53,9 @@ using hash_grid::Cell;
 using hash_grid::Levels;
 
 constexpr int THREADS = 256;
+// K7's backward spreads a wave of blocks over the levels where the whole
+// gradient takes at most this many bytes: a third of the H100's 50 MB L2
+constexpr double SPREAD_BYTES = 16.0 * (1 << 20);
 
 template <bool PACKED>
 __global__ void __launch_bounds__(THREADS)
@@ -82,31 +101,114 @@ __device__ __forceinline__ void add2(float2* dst, float a, float b) {
 #endif
 }
 
+__device__ __forceinline__ void add4(float4* dst, float4 v) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  atomicAdd(dst, v);
+#else
+  add2(reinterpret_cast<float2*>(dst), v.x, v.y);
+  add2(reinterpret_cast<float2*>(dst) + 1, v.z, v.w);
+#endif
+}
+
+// The lanes of a warp whose keys are equal form a group: the group's
+// lowest lane adds the group's terms, taken in lane order, into its row
+// (WIDE: the aligned 16-byte pair of rows at row), one atomic for the
+// group.  A lane with the key ~0u has nothing to add.  Every lane of the
+// warp calls it.
+template <bool WIDE>
+__device__ __forceinline__ void group_add(float2* dtable, uint32_t key,
+                                          uint32_t row, float4 v,
+                                          float4* warp_terms) {
+  const int lane = threadIdx.x & 31;
+  const unsigned grp = __match_any_sync(0xFFFFFFFFu, key);
+  if (key == ~0u) return;
+  if (grp != 1u << lane) {
+    warp_terms[lane] = v;
+    __syncwarp(grp);
+    const bool leader = lane == __ffs(grp) - 1;
+    if (leader) {
+      for (unsigned rest = grp & (grp - 1); rest; rest &= rest - 1) {
+        const float4 t = warp_terms[__ffs(rest) - 1];
+        v.x = __fadd_rn(v.x, t.x);
+        v.y = __fadd_rn(v.y, t.y);
+        if (WIDE) {
+          v.z = __fadd_rn(v.z, t.z);
+          v.w = __fadd_rn(v.w, t.w);
+        }
+      }
+    }
+    __syncwarp(grp);  // read before the next group_add writes
+    if (!leader) return;
+  }
+  if (WIDE)
+    add4(reinterpret_cast<float4*>(dtable + row), v);
+  else
+    add2(dtable + row, v.x, v.y);
+}
+
+// Block b is (a tile of THREADS samples, a level counted from the last
+// one), so a warp is 32 samples of one level.  Each sample adds its corner
+// c and x-neighbour c + 4 together.  Without SPREAD the level changes
+// slowest with b: a wave of blocks adds into one level's rows, which keeps
+// a gradient larger than the L2 in it a level at a time.  With SPREAD
+// (a gradient the L2 holds whole) the level changes fastest: a wave
+// spreads its atomics over every level's rows instead of queueing them on
+// one level's few.
 template <bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 hash_grid_train_bwd_kernel(const float* __restrict__ x,
                            const float2* __restrict__ gout, Levels lv,
-                           int n_levels, long long n_threads,
+                           int n_levels, int n, int spread,
                            float2* __restrict__ dtable) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_threads) return;
-  const long long s = t / n_levels;
-  const int l = (int)(t - s * n_levels);
-  const float2 g = gout[t];
-  const Cell cell =
-      hash_grid::cell_of(x[3 * s], x[3 * s + 1], x[3 * s + 2], lv.scale[l]);
+  __shared__ float4 terms[THREADS];  // a group's terms, for its leader
+  const int n_tiles = gridDim.x / n_levels;
+  const int b = blockIdx.x;
+  const int l = n_levels - 1 - (spread ? b % n_levels : b / n_tiles);
+  const int s = (spread ? b / n_levels : b % n_tiles) * THREADS + threadIdx.x;
+  const bool on = s < n;  // an idle lane still takes part in the groups
+  const int res = lv.res[l];
+  const bool dense = lv.dense[l] != 0;
+  const uint32_t params = lv.params[l];
+  const uint32_t mask = hash_grid::hash_mask(params);
+  const uint32_t offset = (uint32_t)lv.offset[l];
+  const int sl = on ? s : 0;
+  const float2 g = gout[(size_t)sl * n_levels + l];
+  const Cell cell = hash_grid::cell_of(x[3 * sl], x[3 * sl + 1],
+                                       x[3 * sl + 2], lv.scale[l]);
+  float4* const warp_terms = terms + (threadIdx.x & ~31);
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float w = hash_grid::corner_weight(cell, c);
-    const uint32_t idx = lv.offset[l] + hash_grid::corner_index(
-                                            cell, c, lv.res[l], lv.dense[l],
-                                            lv.params[l]);
-    float v0 = __fmul_rn(w, g.x), v1 = __fmul_rn(w, g.y);
+  for (int c = 0; c < 4; ++c) {
+    const float w0 = hash_grid::corner_weight(cell, c);
+    const float w1 = hash_grid::corner_weight(cell, c + 4);
+    const uint32_t r0 = offset + hash_grid::level_corner_index(
+                                     cell, c, res, dense, params, mask);
+    const uint32_t r1 = offset + hash_grid::level_corner_index(
+                                     cell, c + 4, res, dense, params, mask);
+    float a0 = __fmul_rn(w0, g.x), a1 = __fmul_rn(w0, g.y);
+    float b0 = __fmul_rn(w1, g.x), b1 = __fmul_rn(w1, g.y);
     if (PACKED) {
-      v0 = bf16::round_rn(v0);
-      v1 = bf16::round_rn(v1);
+      a0 = bf16::round_rn(a0);
+      a1 = bf16::round_rn(a1);
+      b0 = bf16::round_rn(b0);
+      b1 = bf16::round_rn(b1);
     }
-    add2(dtable + idx, v0, v1);
+    // the two rows are one aligned 16-byte pair (the level offsets are
+    // multiples of 8): one 16-byte atomic; its group key has the top bit
+    // set, above every row, and ~0u is no key
+    const bool pair = (r0 ^ r1) == 1u;
+    if (__any_sync(0xFFFFFFFFu, on && pair)) {
+      const float4 v = r0 & 1u ? make_float4(b0, b1, a0, a1)
+                               : make_float4(a0, a1, b0, b1);
+      group_add<true>(dtable, on && pair ? 0x80000000u | (r0 >> 1) : ~0u,
+                      r0 & ~1u, v, warp_terms);
+    }
+    if (__any_sync(0xFFFFFFFFu, on && !pair)) {
+      const bool single = on && !pair;
+      group_add<false>(dtable, single ? r0 : ~0u, r0,
+                       make_float4(a0, a1, 0.0f, 0.0f), warp_terms);
+      group_add<false>(dtable, single ? r1 : ~0u, r1,
+                       make_float4(b0, b1, 0.0f, 0.0f), warp_terms);
+    }
   }
 }
 
@@ -149,17 +251,19 @@ extern "C" int hash_grid_train_bwd_launch(
   const Levels lv = hash_grid::make_levels(level_scale, level_res,
                                            level_dense, level_params,
                                            level_offset, n_levels);
-  const long long n_threads = (long long)n * n_levels;
+  const int blocks = (n + THREADS - 1) / THREADS * n_levels;
+  // the gradient's bytes: the last level's offset plus its rows
+  const double bytes =
+      8.0 * ((double)lv.offset[n_levels - 1] + lv.params[n_levels - 1]);
+  const int spread = bytes <= SPREAD_BYTES;
   const cudaStream_t st = (cudaStream_t)stream;
   if (packed)
-    hash_grid_train_bwd_kernel<true><<<blocks_for(n_threads), THREADS, 0,
-                                       st>>>(
-        (const float*)x, (const float2*)gout, lv, n_levels, n_threads,
+    hash_grid_train_bwd_kernel<true><<<blocks, THREADS, 0, st>>>(
+        (const float*)x, (const float2*)gout, lv, n_levels, n, spread,
         (float2*)dtable);
   else
-    hash_grid_train_bwd_kernel<false><<<blocks_for(n_threads), THREADS, 0,
-                                        st>>>(
-        (const float*)x, (const float2*)gout, lv, n_levels, n_threads,
+    hash_grid_train_bwd_kernel<false><<<blocks, THREADS, 0, st>>>(
+        (const float*)x, (const float2*)gout, lv, n_levels, n, spread,
         (float2*)dtable);
   return (int)cudaGetLastError();
 }

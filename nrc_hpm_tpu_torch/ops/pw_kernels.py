@@ -5,8 +5,9 @@ Replaces the Pallas kernels ``nrc_hpm_tpu/ops/pw_kernels.py:_make_kernel``
 ``pw_profile``) with the CUDA kernels of ``csrc/pw_kernels.cu``; that file's
 header says what bounds them on the H100 and what each design does about
 it (K1: one O(S + C) interval walk per lane on a persistent grid, bitwise
-the telescoping sums below, its S event records in shared memory; K2: one
-thread per lane, the profile in arrays).
+the telescoping sums below, its S event records in shared memory; K2: the
+same walk with one event, its lookups on integer cell coordinates, on a
+persistent grid).
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors; ``<wrapper>.launches`` counts kernel launches.

@@ -238,3 +238,139 @@ def test_interval_walk_is_bitwise_the_telescoping_sums(case, salt):
         assert (t == -1).all() and (want["lin"].numpy() == -1).all()
     if case != "beyond":
         assert (t >= 0).mean() > 0.1 and (t == -1).any()
+
+
+def _cells_lookup_mirror(vol, px, py, pz):
+    """K2's macro_lookup_cells in numpy: the cell's integer coordinates
+    (a floor saturated to int32, as __float2int_rd), the bounds tested as
+    unsigned integers, the index in integers."""
+    f32 = np.float32
+    inv, dims, _ = pk._scene(vol)
+    tbl = vol.macro_packed.numpy().view(np.uint32)
+    ints = []
+    for p, i, m in zip((px, py, pz), inv, dims):
+        c = (p * f32(i) + f32(0.5)) * f32(m)
+        ints.append(np.clip(np.floor(c).astype(np.float64), -2.0 ** 31,
+                            2.0 ** 31 - 1).astype(np.int64))
+    strict = np.all([(i & 0xFFFFFFFF) < m for i, m in zip(ints, dims)], 0)
+    ext = np.all([((i & 0xFFFFFFFF) + 1) & 0xFFFFFFFF < m + 2
+                  for i, m in zip(ints, dims)], 0)
+    (ix, iy, iz), (mx, my, mz) = ints, dims
+    lin = (np.clip(ix, 0, mx - 1) * (my * mz) + np.clip(iy, 0, my - 1) * mz
+           + np.clip(iz, 0, mz - 1))
+    w = tbl[lin]
+    s = (w & np.uint32(0xFFFF0000)).view(f32)
+    c = np.fmin((w << np.uint32(16)).view(f32), s)
+    d = f32(vol.density_factor)
+    return (np.where(ext, s, f32(0.0)) * d,
+            np.where(strict, c, f32(0.0)) * d)
+
+
+def test_cell_lookup_is_bitwise_the_float_lookup():
+    """K2 looks the macro table up on integer cell coordinates; the plain
+    version (K1's lookup) on float ones.  The same bits for points inside,
+    on cell faces, in the one-cell border and far outside the box."""
+    rs = np.random.RandomState(13)
+    data = (0.3 + rs.rand(64, 48, 80)).astype(np.float32)
+    vol = TVolume.from_dense(data, 0.6, 0.8, device="cpu")
+    inv, dims, _ = pk._scene(vol)
+    sky = [1.0 / v for v in inv]
+    pts = [rs.uniform(-0.7 * s, 0.7 * s, 4096) for s in sky]
+    # exactly on cell faces and box faces, and beyond int32 cell indices
+    faces = [((rs.randint(-2, m + 3, 512) / m) - 0.5) * s
+             for s, m in zip(sky, dims)]
+    far = [rs.choice([-1e12, -3e9, 3e9, 1e12], 64) for _ in sky]
+    px, py, pz = (np.concatenate(v).astype(np.float32)
+                  for v in zip(pts, faces, far))
+    tbl64 = vol.macro_packed.to(torch.int64) & 0xFFFFFFFF
+    want = pk._macro_lookup(vol, tbl64, *(torch.from_numpy(v)
+                                          for v in (px, py, pz)))
+    got = _cells_lookup_mirror(vol, px, py, pz)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.view(np.int32), w.numpy().view(np.int32))
+    sig, ctl = got
+    # outside, the one-cell border (majorant only) and inside all reached
+    assert (sig == 0).any() and ((sig > 0) & (ctl == 0)).any()
+    assert (ctl > 0).any()
+
+
+def _profile_walk_mirror(vol, start, d, tmax, seed_u, want_ctrl):
+    """K2 in sequential float32 numpy, in the kernel's order (lanes side by
+    side): the control draw first; the whole sweep of the C intervals on
+    integer-cell lookups; then the walk, which adds each interval's terms
+    while E >= ccum[c] and stops at the first interval with E < ccum[c]."""
+    f32 = np.float32
+    C, n = pk.C, tmax.shape[0]
+    h = tmax * f32(1.0 / C)
+    if want_ctrl:
+        seed64 = torch.from_numpy(seed_u.astype(np.int64))
+        E = -torch.log1p(-pk._uniform(seed64, 0, pk.SALT_CTRL)).numpy()
+    p_sig, p_ctl = _cells_lookup_mirror(vol, *start.T)
+    rc = cc = np.zeros(n, f32)
+    ctl, ccum = [], []
+    for i in range(C):
+        t_i = f32(i + 1) * h
+        n_sig, n_ctl = _cells_lookup_mirror(
+            vol, *(start[:, a] + t_i * d[:, a] for a in range(3)))
+        s = np.maximum(p_sig, n_sig)
+        c = np.minimum(np.minimum(p_ctl, n_ctl), s)
+        cc = cc + c * h
+        rc = rc + (s - c) * h
+        ctl.append(c)
+        ccum.append(cc)
+        p_sig, p_ctl = n_sig, n_ctl
+    ctl.append(np.zeros(n, f32))
+    out = dict(rtot=rc, ctot=cc, t_ctrl=np.full(n, f32(pk.T_BEYOND)))
+    if want_ctrl:
+        kacc, e_left, c_at = np.zeros(n, f32), np.zeros(n, f32), ctl[0]
+        live, cc_prev = np.ones(n, bool), np.zeros(n, f32)
+        for c in range(C):
+            live &= E >= ccum[c]
+            kacc = np.where(live, kacc + f32(1.0), kacc)
+            e_left = np.where(live, e_left + (ccum[c] - cc_prev), e_left)
+            c_at = np.where(live, c_at + (ctl[c + 1] - ctl[c]), c_at)
+            cc_prev = ccum[c]
+        rate_h = np.maximum(c_at * h, f32(1e-20))
+        t = kacc * h + (E - e_left) * h / rate_h
+        out["t_ctrl"] = np.where(E >= cc, f32(pk.T_BEYOND), t)
+    return out
+
+
+def _profile_case(case):
+    """(volume, lanes) of one K2 walk case: _walk_case's lanes over a
+    volume large enough for its eroded control to be non-zero inside (the
+    8^3 and 32^3 volumes of the K1 cases have none)."""
+    lanes = _walk_case(case)[1]
+    data = 0.3 + np.random.RandomState(42).rand(64, 64, 64)
+    if case == "flat":
+        data[:, :, :24] = 0.0
+    density = 1e-8 if case == "beyond" else 0.6
+    return TVolume.from_dense(data.astype(np.float32), density, 0.8,
+                              device="cpu"), lanes
+
+
+@pytest.mark.parametrize("want_ctrl", [True, False])
+@pytest.mark.parametrize("case", ["random", "tmax0", "flat", "beyond"])
+def test_profile_walk_is_bitwise_the_telescoping_sums(case, want_ctrl):
+    """K2's single-event walk stops adding at the first interval past its
+    control depth; the plain version's telescoping loop adds +-0 there.
+    The two agree bitwise on rtot, ctot and t_ctrl."""
+    vol, lanes = _profile_case(case)
+    want = pk.pw_profile_plain(vol, *_torch(*lanes), want_ctrl=want_ctrl)
+    got = _profile_walk_mirror(vol, *lanes, want_ctrl)
+    for k, w in want.items():
+        assert got[k].dtype == np.float32, k
+        assert np.array_equal(got[k].view(np.int32),
+                              w.numpy().view(np.int32)), f"{k} bitwise"
+    t, rtot = want["t_ctrl"].numpy(), want["rtot"].numpy()
+    beyond = t >= 1e37
+    if not want_ctrl or case == "beyond":
+        assert beyond.all()
+    else:
+        assert 0.05 < beyond.mean() < 0.95, "draws inside and beyond"
+    if case == "tmax0":
+        assert (rtot[::2] == 0).all() and beyond[::2].all()
+    elif case == "flat":
+        _, _, _, ccum, _ = pk._profile_plain(vol, *_torch(*lanes)[:3])
+        steps = np.diff(ccum.numpy(), axis=0)
+        assert (steps == 0).mean() > 0.05 and (steps > 0).any()
