@@ -6,20 +6,27 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nrc_hpm_tpu_torch/csrc`` (one nvcc per
-source, in parallel; ptxas's registers and spills per kernel, K1 and K2
-must not spill; the tensor-core instructions in K3's SASS, which must
-exist),
+source, in parallel; ptxas's registers and spills per kernel, K1, K2, K4
+and K7 must not spill; the tensor-core instructions in K3's and K4's
+SASS, which must exist),
 checks each kernel against its plain PyTorch version at the main paths'
 shapes and times it by its device time in torch.profiler beside its bound
-(K1/K2 also at 65,536 and 1,024 lanes), then drives the NRC frame on a
-procedural cloud with seeded random weights: three frozen-cache frames at
+(K1/K2 also at 65,536 and 1,024 lanes; K4 also at widths 16-256 and at a
+depth beyond shared memory; K7 and K7' also at 20 levels), runs
+``cache.infer`` at the MLP widths and grid K3 does not take (the split
+encode: K7's packed forward, then K4) against the CPU, then drives the
+NRC frame on a procedural cloud with seeded random weights: three
+frozen-cache frames at
 1920x1080 with the default 2^19 hash grid and 64x6 MLP; five
 online-training frames (4 Adam steps of 2^14 samples, 32-bounce train
 paths) at the same configuration, then one more timed by stage and one
 under torch.profiler (each kernel's launches and device ms, the device's
 busy share; K3 timed on that frame's own inference input); two online
 frames at ``AppConfig.tpu_tuned()`` (2^12 tables, the packed
-training encode).  Then the other input encodings (path A): two frozen
+training encode); small frames against the CPU, one of them an online
+frame from ``init_state(0)`` with its own frame seed (the port's threefry
+key chain: the caches and keys must agree bit for bit).  Then the other
+input encodings (path A): two frozen
 and three online 1080p frames at Frequency + TriangleWave (the split
 encode and the fused MLP kernel K4), two frozen frames at hash grid +
 Identity (K7's packed forward, then K4).  Then the per-interval trackers
@@ -69,7 +76,10 @@ K3_TOL = dict(rtol=1e-2, atol=1e-2, max_bad=1e-4, hard=1e-1)
 # K4 sums in another order than torch.matmul, as K3 does: the same bound.
 K4_TOL = K3_TOL
 N_K4 = 1 << 20               # K4 samples
-N_K4_WIDTHS = 1 << 16        # K4 samples at each other built width
+N_K4_WIDTHS = 1 << 16        # K4 samples checked at each other shape
+# K4's other (width, depth): each padded width's instance, STREAM above 128
+# and where the weights outgrow shared memory (128 x 8)
+K4_SHAPES = ((16, 6), (32, 6), (48, 6), (128, 6), (256, 6), (128, 8))
 # K5/K6 copy table words: bitwise.
 BITWISE = dict(rtol=0.0, atol=0.0, max_bad=0.0)
 N_PROFILE = 1 << 16          # K5/K6 lanes: the train rays of a 1080p frame
@@ -135,14 +145,16 @@ F32_OPS_S = 67e12
 # hash-grid encode (cell, 8 corner weights and indices, 16 products/sums)
 LOOKUP_OPS, INTERVAL_OPS, EVENT_OPS, LEVEL_OPS = 30, 14, 60, 150
 # kernels whose every instance must not spill registers
-NO_SPILL = ("pw_events_kernel", "pw_profile_kernel")
+NO_SPILL = ("pw_events_kernel", "pw_profile_kernel", "fused_mlp_resident",
+            "fused_mlp_stream", "hash_grid_train_fwd_kernel",
+            "hash_grid_train_bwd_kernel")
 # the kernel of each wrapper, by the name the profiler shows
 KERNEL_NAMES = dict(pw_events="pw_events_kernel",
                     pw_profile="pw_profile_kernel",
                     fused_encode_mlp="fused_encode_mlp_kernel",
                     hash_grid_train_fwd="hash_grid_train_fwd_kernel",
                     hash_grid_train_bwd="hash_grid_train_bwd_kernel",
-                    fused_mlp="fused_mlp_kernel",
+                    fused_mlp="fused_mlp_",
                     table_gather="table_gather_kernel",
                     small_table_lookup="small_table_lookup_kernel")
 
@@ -202,12 +214,14 @@ def busy_ms(torch, prof) -> float:
     return total / 1e3
 
 
-def device_ms(torch, fn, name: str, reps: int = REPS, kernel=None) -> float:
+def device_ms(torch, fn, name: str, reps: int = REPS, kernel=None,
+              optional: bool = False):
     """Milliseconds of device time per call of ``fn`` spent in the kernel
     ``KERNEL_NAMES[name]`` (or in those whose name holds ``kernel``), from
     torch.profiler over ``reps`` calls after a warm-up (the kernel alone:
     no launch gaps, no set-up kernels of the wrapper).  A trace that lost
-    the kernel's events is taken again, up to three times in all."""
+    the kernel's events is taken again, up to three times in all; then it
+    raises, or returns None (not measured) where ``optional``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -222,6 +236,8 @@ def device_ms(torch, fn, name: str, reps: int = REPS, kernel=None) -> float:
         ms = sum(t for key, t, _ in device_rows(torch, prof) if want in key)
         if ms > 0:
             return ms / reps
+    if optional:
+        return None
     raise AssertionError(f"{name}: the profiler saw no device time")
 
 
@@ -293,6 +309,18 @@ def ptxas_kernels(log: str) -> dict:
     return out
 
 
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name in a mangled symbol: the last identifier,
+    read by its length prefix, that ends in ``_kernel``."""
+    name = mangled
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        at = m.start() + len(m.group(1))
+        ident = mangled[at:at + int(m.group(1))]
+        if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
+            name = ident
+    return name
+
+
 def compare(torch, name, got: dict, want: dict, rtol, atol, max_bad,
             hard=None, scale=None) -> float:
     """Max abs error over all outputs; raises if more than ``max_bad`` of
@@ -328,18 +356,17 @@ def compare(torch, name, got: dict, want: dict, rtol, atol, max_bad,
 def build() -> dict:
     """Build every library, one nvcc each, all started together (timed);
     print ptxas's registers and spills for each kernel and the tensor-core
-    (HMMA) instructions of K3's library.  K1 and K2 must not spill and K3
-    must run on the tensor cores.  Returns the library path of each
-    source."""
+    (HMMA) instructions of K3's and K4's libraries.  K1, K2, K4 and K7
+    (both directions) must not spill and K3 and K4 must run on the tensor
+    cores.  Returns the library path of each source."""
     from nrc_hpm_tpu_torch.ops import (_build, fused_encode_mlp, fused_mlp,
                                        hash_grid_train, pw_kernels,
                                        table_gather)
 
     t0 = time.perf_counter()
     jobs = [(pw_kernels._LIB, ("-fmad=false",)), (fused_encode_mlp._LIB, ()),
-            (hash_grid_train._LIB, ()), (table_gather._LIB, ())]
-    jobs += [(fused_mlp._LIB, fused_mlp.build_flags(w))
-             for w in fused_mlp.WIDTHS]
+            (hash_grid_train._LIB, ()), (table_gather._LIB, ()),
+            (fused_mlp._LIB, ())]
 
     def run(job):
         so = _build.library_path(*job)
@@ -356,23 +383,24 @@ def build() -> dict:
         log = so.with_suffix(".log")
         for kern, (n_regs, st, ld) in ptxas_kernels(
                 log.read_text() if log.exists() else "").items():
-            short = next((k for k in KERNEL_NAMES.values() if k in kern),
-                         kern)
-            spills[short] = max(spills.get(short, 0), st + ld)
-            inst = {"ILb0E": "<false>", "ILb1E": "<true>"}
-            short += next((v for k, v in inst.items() if k in kern), "")
+            spills[kern] = st + ld
+            inst = re.search(r"ILb[01]E|ILi\d+E", kern)
+            short = kernel_name(kern) + (
+                f"<{inst.group(0)[3:-1]}>" if inst else "")
             print(f"ptxas {so.name} {short}: {n_regs} registers, spill "
                   f"stores {st} B, spill loads {ld} B")
     for kern in NO_SPILL:
-        if spills.get(kern, 1) != 0:
+        found = [v for k, v in spills.items() if kern in k]
+        if not found or any(found):
             raise AssertionError(f"{kern} spills (or was not found in the "
                                  f"ptxas log)")
     libs = {job[0]: so for job, (so, _) in zip(jobs, done)}
-    hmma = gpu_sass_count(libs[fused_encode_mlp._LIB], "HMMA")
-    print(f"SASS of {libs[fused_encode_mlp._LIB].name}: {hmma} HMMA "
-          f"instructions (tensor cores)")
-    if hmma <= 0:
-        raise AssertionError("fused_encode_mlp has no HMMA instruction")
+    for lib in (fused_encode_mlp._LIB, fused_mlp._LIB):
+        hmma = gpu_sass_count(libs[lib], "HMMA")
+        print(f"SASS of {libs[lib].name}: {hmma} HMMA instructions (tensor "
+              f"cores)")
+        if hmma <= 0:
+            raise AssertionError(f"{lib} has no HMMA instruction")
     return libs
 
 
@@ -409,6 +437,13 @@ def camera_lanes(torch, dev, vol, cfg, gen):
             torch.zeros(N_LANES, device=dev))
 
 
+def seeded_key(torch, gen):
+    """A threefry key (the port's cache init) whose seed ``gen`` draws."""
+    from nrc_hpm_tpu_torch.utils.prng import prng_key
+
+    return prng_key(int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
+
+
 def k3_inputs(torch, dev, cfg, gen):
     """K3's arguments at ``cfg``: a unit-scale packed table (it exercises
     the gathers more than tcnn's 1e-4 init), the seeded MLP, N_X5 random
@@ -418,7 +453,8 @@ def k3_inputs(torch, dev, cfg, gen):
 
     cache = NeuralRadianceCache(cfg)
     spec = cache.encoding.grid_spec
-    layers = cache.init_state(gen, dev).ema_params["mlp"]["layers"]
+    layers = cache.init_state(seeded_key(torch, gen),
+                              dev).ema_params["mlp"]["layers"]
     table = (torch.rand((spec.total_params, 2), generator=gen) * 2 - 1)
     x5 = torch.rand((N_X5, 5), generator=gen).to(dev)
     x5[:, 3] = x5[:, 3] * 2.0 - 0.5
@@ -542,7 +578,7 @@ def k3_ms(torch, fem, fargs, label: str = "") -> float:
 def mlp_and_lookup_kernels(torch, dev, vol, cfg, gen) -> list:
     """K4 on 2^20 samples of the 80 Frequency(12) + TriangleWave(4)
     features of random inputs through the 64x6 MLP, and on 2^16 of them
-    at each other width the kernel is built for (16, 32, 128); K5 on the
+    (checked) and 2^20 (timed) at the other widths K4_SHAPES; K5 on the
     packed macro table and K6 on the float32 macro tables with (65, 65,536)
     random cell indices."""
     from nrc_hpm_tpu_torch.config import EncodingConfig
@@ -553,9 +589,9 @@ def mlp_and_lookup_kernels(torch, dev, vol, cfg, gen) -> list:
 
     rows = []
     src = "nrc_hpm_tpu_torch/csrc/fused_mlp.cu"
-    cache = NeuralRadianceCache(dataclasses.replace(
-        cfg, encoding=EncodingConfig(pos_id=3, dir_id=2)))
-    mlp = cache.init_state(gen, dev).ema_params["mlp"]
+    enc = EncodingConfig(pos_id=3, dir_id=2)
+    cache = NeuralRadianceCache(dataclasses.replace(cfg, encoding=enc))
+    mlp = cache.init_state(seeded_key(torch, gen), dev).ema_params["mlp"]
     x5 = torch.rand((N_K4, 5), generator=gen).to(dev)
     feats = cache.encoding({}, x5)
     print(f"fused_mlp: {N_K4} samples of {feats.shape[1]} features, "
@@ -569,20 +605,30 @@ def mlp_and_lookup_kernels(torch, dev, vol, cfg, gen) -> list:
         device_ms(torch, lambda: fm.fused_mlp_infer(mlp, feats),
                   "fused_mlp"),
         time_ms(torch, lambda: fm.fused_mlp_plain(mlp, feats)),
-        bound(feats.numel() * 4 + N_K4 * 4 * layers[-1].shape[1]
-              + 2 * sum(w.numel() for w in layers),
-              bf16_ops=N_K4 * mlp_ops(layers))))
-    # the other widths the kernel is built for, once each, at 2^16 samples
-    for width in fm.WIDTHS:
-        if width == cfg.nn_width:
-            continue
+        k4_bound(feats, layers)))
+    # the other shapes: every padded width, STREAM above 128 and where the
+    # weights outgrow shared memory (width 128, depth 8)
+    few = feats[:N_K4_WIDTHS]
+    widths_ms = {}
+    for width, depth in K4_SHAPES:
         w_cache = NeuralRadianceCache(dataclasses.replace(
-            cfg, nn_width=width, encoding=EncodingConfig(pos_id=3, dir_id=2)))
-        w_mlp = w_cache.init_state(gen, dev).ema_params["mlp"]
-        few = feats[:N_K4_WIDTHS]
-        compare(torch, f"fused_mlp width {width} ({N_K4_WIDTHS} samples)",
+            cfg, nn_width=width, nn_depth=depth, encoding=enc))
+        w_mlp = w_cache.init_state(seeded_key(torch, gen),
+                                   dev).ema_params["mlp"]
+        ly = w_mlp["layers"]
+        stream = fm.plan(ly, feats.shape[1], ly[-1].shape[1])[2]
+        label = (f"fused_mlp width {width} depth {depth} "
+                 f"({'STREAM' if stream else 'RESIDENT'})")
+        compare(torch, f"{label} ({N_K4_WIDTHS} samples)",
                 dict(out=fm.fused_mlp_infer(w_mlp, few)),
                 dict(out=fm.fused_mlp_plain(w_mlp, few)), **K4_TOL)
+        ms = device_ms(torch, lambda: fm.fused_mlp_infer(w_mlp, feats),
+                       "fused_mlp")
+        bnd = k4_bound(feats, ly)
+        widths_ms[f"{width}x{depth}"] = ms
+        print(f"{label} {N_K4} samples: kernel {ms:.4f} ms (device), bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}), clocks {sm_clock()}")
+    rows[-1]["shapes_ms"] = widths_ms
 
     src = "nrc_hpm_tpu_torch/csrc/table_gather.cu"
     n_cells = vol.macro_packed.shape[0]
@@ -617,6 +663,15 @@ def mlp_and_lookup_kernels(torch, dev, vol, cfg, gen) -> list:
     return rows
 
 
+def k4_bound(feats, layers):
+    """K4: the features read and the outputs written once, the weights
+    read once; the MLP's bf16 products."""
+    n = feats.shape[0]
+    return bound(feats.numel() * 4 + n * 4 * layers[-1].shape[1]
+                 + 2 * sum(w.numel() for w in layers),
+                 bf16_ops=n * mlp_ops(layers))
+
+
 def repeating_positions(torch, n: int, gen):
     """n box positions (on the CPU) that repeat as a frame's train batch
     does: each 32 consecutive samples lie within 2e-3 of one random point,
@@ -632,12 +687,14 @@ def train_encode_phase(torch, dev, cfg, gen) -> list:
     """K7 forward and backward against their plain versions: the float32
     table at the default 2^19 per level and the packed table at the
     tpu_tuned 2^12, one train batch and 2^20 samples, unit-scale tables;
-    the backward also on one train batch of repeating positions.
+    the backward also on one train batch of repeating positions; both at
+    20 levels (past the 16 of K3's level arrays) on one train batch.
     The rows carry the 2^19 float32 times at 2^20 samples (the default
-    configuration's route) and at one train batch (``train_batch_ms``);
-    the backward's bound counts the rows it touches, and ``zeros_ms`` /
-    ``zeros_bound_ms`` time and bound the wrapper's torch.zeros of the
-    whole gradient, which runs before it."""
+    configuration's route) and at one train batch (``train_batch_ms``).
+    Both bounds count the table rows the lookups touch, the forward's
+    read and the backward's written; ``zeros_ms`` / ``zeros_bound_ms``
+    time and bound the backward wrapper's torch.zeros of the whole
+    gradient, which runs before it."""
     from nrc_hpm_tpu_torch.config import AppConfig
     from nrc_hpm_tpu_torch.models.nrc.encoding import (CompositeEncoding,
                                                        pack_table_bf16)
@@ -647,15 +704,20 @@ def train_encode_phase(torch, dev, cfg, gen) -> list:
     replaces = "nrc_hpm_tpu/models/nrc/encoding.py:296"
     errs = {"hash_grid_train_fwd": 0.0, "hash_grid_train_bwd": 0.0}
     times = {}
-    for packed, enc in ((False, cfg.encoding),
-                        (True, AppConfig.tpu_tuned().encoding)):
+    tuned = AppConfig.tpu_tuned().encoding
+    for packed, enc, sizes in (
+            (False, cfg.encoding, (N_TRAIN, N_TIME)),
+            (True, tuned, (N_TRAIN, N_TIME)),
+            (False, dataclasses.replace(cfg.encoding, n_levels=20),
+             (N_TRAIN,)),
+            (True, dataclasses.replace(tuned, n_levels=20), (N_TRAIN,))):
         spec = CompositeEncoding(enc).grid_spec
         table = (torch.rand((spec.total_params, 2), generator=gen) * 2 - 1
                  ).to(dev)
         src_table = pack_table_bf16(table) if packed else table
         tag = (f"{'packed' if packed else 'float32'} "
-               f"2^{enc.log2_hashmap_size}")
-        for n in (N_TRAIN, N_TIME):
+               f"2^{enc.log2_hashmap_size} {spec.n_levels} levels")
+        for n in sizes:
             x = torch.rand((n, 3), generator=gen).to(dev)
             x = x * 1.2 - 0.1          # box coordinates, a little outside
             g = torch.randn((n, spec.out_dim), generator=gen).to(dev)
@@ -674,14 +736,19 @@ def train_encode_phase(torch, dev, cfg, gen) -> list:
                     dict(dtable=hgt.hash_grid_train_bwd(*bargs)),
                     dict(dtable=hgt.hash_grid_train_bwd_plain(*bargs)),
                     scale=dict(dtable=s), **K7_BWD_TOL))
-            # the backward writes only the rows its lookups touch; the
-            # wrapper's torch.zeros writes the whole (P, 2) gradient first
+            if spec.n_levels != cfg.encoding.n_levels:
+                continue
+            # the rows the lookups touch (read forward, written backward);
+            # the backward wrapper's torch.zeros writes the whole (P, 2)
+            # gradient first
             touched = int((s.sum(-1) > 0).sum())
             zeros_ms = bound(8 * spec.total_params)[0]
+            # an aside, not a check: the profiler's trace of this memset
+            # once came back empty three times in a row
             zeros_dev = device_ms(
                 torch, lambda: torch.zeros((spec.total_params, 2),
                                            device=dev), "torch.zeros",
-                kernel="")
+                kernel="", optional=True)
             for name, fn, plain, args in (
                     ("hash_grid_train_fwd", hgt.hash_grid_train_fwd,
                      hgt.hash_grid_train_fwd_plain, fargs),
@@ -690,48 +757,53 @@ def train_encode_phase(torch, dev, cfg, gen) -> list:
                 ms = device_ms(torch, lambda: fn(*args), name)
                 plain_ms = time_ms(torch, lambda: plain(*args))
                 # x and the (N, L, 2) features or their gradient once; the
-                # table read (forward) or the touched rows of its gradient
-                # written (backward)
+                # touched rows read (forward, 4 bytes a packed row) or
+                # written (backward, float32)
                 fwd = name.endswith("fwd")
                 bnd = bound(12 * n + 8 * n * spec.n_levels
-                            + ((4 if packed else 8) * spec.total_params
-                               if fwd else 8 * touched),
+                            + (4 if fwd and packed else 8) * touched,
                             f32_ops=n * spec.n_levels * LEVEL_OPS)
+                took = ("not measured" if zeros_dev is None
+                        else f"{zeros_dev:.4f} ms (device)")
                 zeros = "" if fwd else (
-                    f" ({touched} rows touched; the wrapper's torch.zeros "
+                    f" (the wrapper's torch.zeros "
                     f"of the {8 * spec.total_params / 1e6:.1f} MB gradient "
-                    f"before it: {zeros_dev:.4f} ms (device), bound "
-                    f"{zeros_ms:.4f} ms)")
+                    f"before it: {took}, bound {zeros_ms:.4f} ms)")
                 print(f"{name} {tag} n={n}: kernel {ms:.4f} ms (device), "
                       f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
-                      f"({bnd[1]}){zeros}")
+                      f"({bnd[1]}; {touched} of {spec.total_params} rows "
+                      f"touched){zeros}")
                 times[(name, packed, n)] = (ms, plain_ms, bnd, zeros_ms,
                                             zeros_dev)
-        # one train batch that repeats positions, as a frame's does: the
-        # lanes of a warp share rows on every level, so the backward's
-        # __match_any_sync groups carry the work
-        x = repeating_positions(torch, N_TRAIN, gen).to(dev)
-        g = torch.randn((N_TRAIN, spec.out_dim), generator=gen).to(dev)
-        bargs = (x, g, spec, packed)
-        s = hgt.hash_grid_train_bwd_plain(x, g.abs(), spec, packed)
-        errs["hash_grid_train_bwd"] = max(
-            errs["hash_grid_train_bwd"], compare(
-                torch, f"hash_grid_train_bwd {tag} n={N_TRAIN} repeating",
-                dict(dtable=hgt.hash_grid_train_bwd(*bargs)),
-                dict(dtable=hgt.hash_grid_train_bwd_plain(*bargs)),
-                scale=dict(dtable=s), **K7_BWD_TOL))
-        ms = device_ms(torch, lambda: hgt.hash_grid_train_bwd(*bargs),
-                       "hash_grid_train_bwd")
-        print(f"hash_grid_train_bwd {tag} n={N_TRAIN} repeating positions: "
-              f"kernel {ms:.4f} ms (device), {int((s.sum(-1) > 0).sum())} "
-              f"rows touched")
+            if n != N_TRAIN:
+                continue
+            # one train batch that repeats positions, as a frame's does:
+            # the lanes of a warp share rows on every level, so the
+            # backward's __match_any_sync groups carry the work
+            x = repeating_positions(torch, N_TRAIN, gen).to(dev)
+            g = torch.randn((N_TRAIN, spec.out_dim), generator=gen).to(dev)
+            bargs = (x, g, spec, packed)
+            s = hgt.hash_grid_train_bwd_plain(x, g.abs(), spec, packed)
+            errs["hash_grid_train_bwd"] = max(
+                errs["hash_grid_train_bwd"], compare(
+                    torch, f"hash_grid_train_bwd {tag} n={N_TRAIN} "
+                    f"repeating", dict(dtable=hgt.hash_grid_train_bwd(
+                        *bargs)),
+                    dict(dtable=hgt.hash_grid_train_bwd_plain(*bargs)),
+                    scale=dict(dtable=s), **K7_BWD_TOL))
+            ms = device_ms(torch, lambda: hgt.hash_grid_train_bwd(*bargs),
+                           "hash_grid_train_bwd")
+            print(f"hash_grid_train_bwd {tag} n={N_TRAIN} repeating "
+                  f"positions: kernel {ms:.4f} ms (device), "
+                  f"{int((s.sum(-1) > 0).sum())} rows touched")
     rows = []
     for name in ("hash_grid_train_fwd", "hash_grid_train_bwd"):
         ms, plain_ms, bnd, zeros_ms, zeros_dev = times[(name, False, N_TIME)]
         row = dict(name=name, route="cuda", source=src, replaces=replaces,
                    max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
-                   train_batch_ms=times[(name, False, N_TRAIN)][0])
+                   train_batch_ms=times[(name, False, N_TRAIN)][0],
+                   train_batch_bound_ms=times[(name, False, N_TRAIN)][2][0])
         if name.endswith("bwd"):
             row.update(zeros_ms=zeros_dev, zeros_bound_ms=zeros_ms)
         rows.append(row)
@@ -757,6 +829,15 @@ def wrappers() -> dict:
 
 # The kernels each path must launch; every other kernel must not run there.
 TRACK = ("pw_events", "pw_profile")
+# cache.infer at the shapes K3 does not take: K7's packed forward, then K4
+SPLIT_INFER = ("hash_grid_train_fwd", "fused_mlp")
+N_INFER = 1 << 14
+# (nn_width, nn_depth, n_levels, the kernels cache.infer launches there):
+# every K4 design and padding, 128 x 8 beyond shared memory, 20 levels
+INFER_ROUTES = ((16, 6, 16, SPLIT_INFER), (32, 6, 16, SPLIT_INFER),
+                (48, 6, 16, SPLIT_INFER), (128, 6, 16, SPLIT_INFER),
+                (256, 6, 16, SPLIT_INFER), (128, 8, 16, SPLIT_INFER),
+                (64, 6, 20, SPLIT_INFER), (64, 6, 16, ("fused_encode_mlp",)))
 TRAIN = ("hash_grid_train_fwd", "hash_grid_train_bwd")
 FROZEN_KERNELS = TRACK + ("fused_encode_mlp",)
 ONLINE_KERNELS = FROZEN_KERNELS + TRAIN
@@ -1009,22 +1090,26 @@ def check_trained(torch, label, got, want, rtol, atol, share) -> None:
 
 
 def small_online_check(torch, dev, vol, cfg, label="small online frame",
-                       strict=True) -> None:
+                       strict=True, seed=5,
+                       frame_random=(0.61, 0.27, 0.93, 0.08)) -> None:
     """A 96x54 online frame (1,024 train rays, 4 steps of 256) through
     the kernels against the same frame through the plain versions on the
-    CPU, from the same state and frame seed; then train_frame through the
-    kernels on the CPU frame's own train inputs and state.  The frame's
-    loss is held to FRAME_LOSS_RTOL.  ``strict`` holds the frame's
-    trained leaves to FRAME_TRAIN_TOL and the same-input step to
-    TRAIN_TOL; else the same-input step to SAME_INPUT_TOL.  Without a
+    CPU, from the same ``init_state(seed)`` and frame seed (the state's
+    own key's where ``frame_random`` is None); then train_frame through
+    the kernels on the CPU frame's own train inputs and state.  The two
+    initial caches and the keys after the frame must be equal bit for
+    bit.  The frame's loss is held to FRAME_LOSS_RTOL.  ``strict`` holds
+    the frame's trained leaves to FRAME_TRAIN_TOL and the same-input step
+    to TRAIN_TOL; else the same-input step to SAME_INPUT_TOL.  Without a
     hash grid the image is held to FRAME_IMAGE_RTOL."""
     from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.models.nrc.cache import tree_leaves
     from nrc_hpm_tpu_torch.renderer import NrcRenderer
 
     small = dataclasses.replace(cfg, render_width=96, render_height=54,
                                 log2_train_batch_size=8)
-    fr = torch.tensor([0.61, 0.27, 0.93, 0.08])
-    out, inputs, renderers = [], [], []
+    fr = None if frame_random is None else torch.tensor(frame_random)
+    out, inputs, renderers, starts = [], [], [], []
     for d in (dev, torch.device("cpu")):
         r = NrcRenderer(small, vol.to(d))
         train_frame = r.cache.train_frame
@@ -1035,10 +1120,16 @@ def small_online_check(torch, dev, vol, cfg, label="small online frame",
 
         r.cache.train_frame = record
         cam = Camera.reference_camera(aspect=96 / 54, device=d)
-        out.append(r.step(r.init_state(seed=5), cam, frame_random=fr))
+        st = r.init_state(seed=seed)
+        starts.append([t.cpu() for t in tree_leaves(st.nrc.params)])
+        out.append(r.step(st, cam, frame_random=fr))
         del r.cache.train_frame
         renderers.append(r)
     gpu, cpu = out
+    if not (all(torch.equal(a, b) for a, b in zip(*starts))
+            and torch.equal(gpu.key, cpu.key)):
+        raise AssertionError(f"{label}: init_state({seed}) or the frame's "
+                             f"key differs between the card and the CPU")
     grid = cfg.encoding.pos_id == 0
     diff = (gpu.image.cpu() - cpu.image).abs()
     err = diff.amax(-1)
@@ -1077,6 +1168,33 @@ def small_online_check(torch, dev, vol, cfg, label="small online frame",
                                           target.to(dev))
     check_trained(torch, f"{label}: train_frame on the same inputs", same,
                   cpu.nrc, **(TRAIN_TOL if strict else SAME_INPUT_TOL))
+
+
+def infer_routes_phase(torch, dev, cfg, gen) -> None:
+    """cache.infer on the card at the MLP shapes and grid K3 does not take
+    (INFER_ROUTES: each through K7's packed forward and K4, not K3) and at
+    the default (K3 only), on N_INFER random inputs with a unit-scale
+    table (tcnn's 1e-4 init hides the grid), against the same cache's
+    plain run on the CPU within K4_TOL."""
+    from nrc_hpm_tpu_torch.models.nrc.cache import NeuralRadianceCache
+
+    x5 = torch.rand((N_INFER, 5), generator=gen)
+    for width, depth, levels, kernels in INFER_ROUTES:
+        c = NeuralRadianceCache(dataclasses.replace(
+            cfg, nn_width=width, nn_depth=depth,
+            encoding=dataclasses.replace(cfg.encoding, n_levels=levels)))
+        st = c.init_state(seeded_key(torch, gen), dev)
+        table = st.ema_params["encoding"]["hash_table"]
+        st.ema_params["encoding"]["hash_table"] = (
+            torch.rand(table.shape, generator=gen) * 2 - 1).to(dev)
+        label = (f"cache.infer {N_INFER} samples, {c.width}x{c.depth}, "
+                 f"{c.encoding.grid_spec.n_levels} levels")
+        zero_launches()
+        got = c.infer(st, x5.to(dev))
+        torch.cuda.synchronize()
+        check_launches(read_launches(), kernels, label)
+        compare(torch, f"{label} vs the CPU", dict(out=got.cpu()),
+                dict(out=c.infer(st.to("cpu"), x5)), **K4_TOL)
 
 
 def encodings_phase(torch, dev, vol, cfg, gpu) -> dict:
@@ -1257,6 +1375,7 @@ def main() -> int:
     print(f"procedural cloud {vol.dims}, macro {vol.macro_dims}: "
           f"{time.perf_counter() - t0:.1f} s")
     rows = kernel_phase(torch, dev, vol, cfg)
+    infer_routes_phase(torch, dev, cfg, torch.Generator().manual_seed(4))
     size = f"{cfg.render_width}x{cfg.render_height}"
     frame_phase(torch, dev, vol, cfg, gpu, 3, f"frozen {size}",
                 FROZEN_KERNELS)
@@ -1272,6 +1391,12 @@ def main() -> int:
                  ONLINE_KERNELS)
     small_frame_check(torch, dev, vol, cfg)
     small_online_check(torch, dev, vol, cfg)
+    # the key chain: the caches and keys bitwise; the frame's own seed
+    # picks other lanes than the fixed one, so the frame is held as the
+    # other configurations' are (its loss, its inputs, SAME_INPUT_TOL)
+    small_online_check(torch, dev, vol, cfg, "small online frame from "
+                       "init_state(0), its own frame seed", strict=False,
+                       seed=0, frame_random=None)
     launches["fused_mlp"] = encodings_phase(torch, dev, vol, cfg,
                                             gpu)["fused_mlp"]
     launches.update(coarse_phase(torch, dev, vol, cfg, gpu))

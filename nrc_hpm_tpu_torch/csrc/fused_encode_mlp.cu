@@ -37,10 +37,10 @@ namespace {
 
 using hash_grid::Levels;
 using hash_grid::MAX_LEVELS;
-using mlp_mma::KSTEPS;
-using mlp_mma::ROW_BYTES;
-using mlp_mma::WIDTH;
 
+constexpr int WIDTH = 64;                   // the MLP's width and in_dim cap
+constexpr int KSTEPS = WIDTH / 16;
+constexpr int ROW_BYTES = mlp_mma::row_bytes(WIDTH);
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int WARP_ROWS = 32;               // samples per warp tile
@@ -111,7 +111,7 @@ __device__ __forceinline__ void encode_row(
       }
       w[q] = bf16::pack(f0, f1);
     }
-    *reinterpret_cast<uint4*>(tile + mlp_mma::swizzle(row, c)) =
+    *reinterpret_cast<uint4*>(tile + mlp_mma::offset(row, c, WIDTH)) =
         make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
@@ -143,13 +143,14 @@ fused_encode_mlp_kernel(const float* __restrict__ x5,
                denom, in_dim);
     __syncwarp();
     uint32_t a[MT][KSTEPS][4];
-    mlp_mma::load_a<MT>(a, tile_addr, 0);
+    mlp_mma::load_a<MT, WIDTH>(a, tile_addr, 0);
     __syncwarp();  // the tile is free for the next encode from here
 
     for (int m = 0; m < depth; ++m)
-      mlp_mma::hidden_layer<MT>(a, w_addr + m * WIDTH * ROW_BYTES);
+      mlp_mma::hidden_layer<MT, WIDTH>(a, w_addr + m * WIDTH * ROW_BYTES);
     float o[MT][4];
-    mlp_mma::output_layer<MT>(a, w_addr + depth * WIDTH * ROW_BYTES, o);
+    mlp_mma::output_layer<MT, WIDTH>(a, w_addr + depth * WIDTH * ROW_BYTES,
+                                    o);
     // o[mt][2 h + e]: row 16 mt + g + 8 h, column 2 tq + e
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)

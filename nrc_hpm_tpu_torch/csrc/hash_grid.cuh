@@ -14,6 +14,20 @@
 
 namespace hash_grid {
 
+// The constants of one level, one 32-byte record of a device array the
+// training kernels (hash_grid_train.cu) read, so they take any number of
+// levels; the wrapper builds it (ops/hash_grid_train.level_table).
+struct __align__(16) Level {
+  float scale;
+  int res;
+  int dense;
+  uint32_t params;
+  int offset;
+  int unused[3];
+};
+
+// The fused encode kernel (K3) takes its level constants by value, up to
+// MAX_LEVELS of them.
 constexpr int MAX_LEVELS = 16;
 
 struct Levels {
@@ -97,8 +111,8 @@ __device__ __forceinline__ uint32_t hash_mask(uint32_t params) {
   return (params & (params - 1)) == 0 ? params - 1 : 0u;
 }
 
-// corner_index for a caller whose level is uniform across the warp (K7's
-// backward): the same row, with the hashed level's modulo taken by its
+// corner_index for a caller whose level is uniform across the warp (K7
+// and its backward): the same row, with the hashed level's modulo taken by its
 // hash_mask where it has one.
 __device__ __forceinline__ uint32_t level_corner_index(const Cell& cell,
                                                        int c, int res,

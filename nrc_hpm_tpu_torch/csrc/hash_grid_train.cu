@@ -5,22 +5,36 @@
 // hash_grid_encode_train, and the one-hot matmul backward
 // _level_grad_matmul.  Both exist on the TPU only because it has no vector
 // gather and no atomics; here the forward gathers and the backward
-// scatters with atomics, as tiny-cuda-nn's grid encoding does.
+// scatters with atomics, as tiny-cuda-nn's grid encoding does.  PACKED
+// reads the bf16-packed (P,) word table (the JAX hash_grid_encode_train
+// forward, and inference's split encode); otherwise the (P, 2) float32
+// table (the JAX hash_grid_encode, used for tables above 2^16 entries per
+// level).  Both kernels read the level constants from a device array of
+// hash_grid::Level records, so they take any number of levels.
 //
-// Forward: one thread per (sample, level): the cell of the level, 8 corner
-// gathers, the trilinear sum, one float2 store into the (N, L*2) output.
-// PACKED reads the bf16-packed (P,) word table (the JAX
-// hash_grid_encode_train forward); otherwise the (P, 2) float32 table (the
-// JAX hash_grid_encode, used for tables above 2^16 entries per level).
+// Forward: what bounds it on the H100 is its gathers, 8 a (sample, level)
+// from a table of up to 57 MB (float32 at 2^19 entries a level, larger
+// than the 50 MB L2), not its arithmetic.  A block encodes 32 samples at
+// every level, a warp a level (more levels than warps take turns), so a
+// level's constants and its dense or hashed branch are uniform across the
+// warp, indices are 32-bit, and a hashed level of 2^k rows takes its
+// modulo as a mask.  A sample's x-neighbour corners c and c + 4 are read
+// as one 16-byte (float32) or 8-byte (packed) load where their rows are
+// the two halves of an aligned pair (an even hashed x0 flips only the
+// hash's low bit, an even dense row has its neighbour next to it), so a
+// sample reads 4 to 8 table sectors a level, not 8.  The block's positions
+// are staged once in shared memory, and so are its outputs, which leave
+// as coalesced rows of the (N, L, 2) output rather than 8-byte stores at
+// the output's row stride.  The 8 corners are summed in corner order, as
+// the plain version's products are.
 //
 // Backward: w * g is added into a zeroed (P, 2) float32 gradient with
 // atomics.  Under PACKED each w * g is rounded to bf16 first, as the JAX
 // backward casts its operand to bf16 before an f32-accumulated matmul.  x
 // gets no gradient.  Its layout follows tiny-cuda-nn's grid-encoding
 // backward, a block of samples of one level, so a warp is 32 samples of
-// one level: the level's constants and its dense or hashed branch are
-// uniform across the warp, indices are 32-bit, and a hashed level of 2^k
-// rows takes its modulo as a mask.  The levels run from the last one down:
+// one level, with the forward's uniform branches, 32-bit indices and
+// masks.  The levels run from the last one down:
 // the wrapper's torch.zeros has just written the table front to back, and
 // its tail is the part still in L2.  A gradient the L2 holds whole (the
 // packed tables) has few rows a level, so there a wave of blocks spans the
@@ -32,14 +46,11 @@
 // sectors of a 57 MB gradient (2^19 entries a level) they pull into the
 // 50 MB L2.  So each sample adds its corner c
 // and x-neighbour c + 4 together, as one 16-byte atomic where their rows
-// are the two halves of an aligned pair (an even hashed x0 flips only the
-// hash's low bit, an even dense row has its neighbour next to it); and the
-// lanes of a warp that add into one row, or one pair, form a group
+// pair, as the forward loads them; and the lanes of a warp that add into
+// one row, or one pair, form a group
 // (__match_any_sync) whose lowest lane adds the group's sum, its terms
 // taken in lane order after rounding.  A frame's own train batch repeats
 // positions, so a warp's samples share rows on every level.
-//
-// The forward leaves its gathers to the L2 (no shared-memory staging).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,46 +61,104 @@
 namespace {
 
 using hash_grid::Cell;
-using hash_grid::Levels;
+using hash_grid::Level;
 
 constexpr int THREADS = 256;
+constexpr int FWD_SAMPLES = 32;  // a forward block's samples
+constexpr int FWD_WARPS = 16;    // the most levels a forward block encodes
+                                 // at once, a warp each
 // K7's backward spreads a wave of blocks over the levels where the whole
 // gradient takes at most this many bytes: a third of the H100's 50 MB L2
 constexpr double SPREAD_BYTES = 16.0 * (1 << 20);
 
+// The two features of one level at (px, py, pz), the level uniform across
+// the warp: the 8 corners read as x-neighbour pairs (one load where their
+// rows pair), then summed in corner order.
 template <bool PACKED>
-__global__ void __launch_bounds__(THREADS)
-hash_grid_train_fwd_kernel(const float* __restrict__ x,
-                           const void* __restrict__ table, Levels lv,
-                           int n_levels, long long n_threads,
-                           float2* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_threads) return;
-  const long long s = t / n_levels;
-  const int l = (int)(t - s * n_levels);
-  const Cell cell =
-      hash_grid::cell_of(x[3 * s], x[3 * s + 1], x[3 * s + 2], lv.scale[l]);
+__device__ __forceinline__ float2 level_features(
+    const void* __restrict__ table, const Level lv, float px, float py,
+    float pz) {
+  const Cell cell = hash_grid::cell_of(px, py, pz, lv.scale);
+  const bool dense = lv.dense != 0;
+  const uint32_t mask = hash_grid::hash_mask(lv.params);
+  float v0[8], v1[8];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t r0 = lv.offset + hash_grid::level_corner_index(
+                                        cell, c, lv.res, dense, lv.params,
+                                        mask);
+    const uint32_t r1 = lv.offset + hash_grid::level_corner_index(
+                                        cell, c + 4, lv.res, dense,
+                                        lv.params, mask);
+    // the aligned pair of rows that holds r0 (level offsets are multiples
+    // of 8 rows); r1 is its other half where the rows pair
+    const bool pair = (r0 ^ r1) == 1u, odd = (r0 & 1u) != 0;
+    if (PACKED) {
+      const uint32_t* tbl = static_cast<const uint32_t*>(table);
+      const uint2 q = __ldg(reinterpret_cast<const uint2*>(tbl) + (r0 >> 1));
+      const uint32_t w0 = odd ? q.y : q.x;
+      const uint32_t w1 = pair ? (odd ? q.x : q.y) : __ldg(tbl + r1);
+      v0[c] = bf16::hi(w0);
+      v1[c] = bf16::lo(w0);
+      v0[c + 4] = bf16::hi(w1);
+      v1[c + 4] = bf16::lo(w1);
+    } else {
+      const float2* tbl = static_cast<const float2*>(table);
+      const float4 q = __ldg(reinterpret_cast<const float4*>(tbl) + (r0 >> 1));
+      const float2 lo = make_float2(q.x, q.y), hi = make_float2(q.z, q.w);
+      const float2 a = odd ? hi : lo;
+      const float2 b = pair ? (odd ? lo : hi) : __ldg(tbl + r1);
+      v0[c] = a.x;
+      v1[c] = a.y;
+      v0[c + 4] = b.x;
+      v1[c + 4] = b.y;
+    }
+  }
   float f0 = 0.0f, f1 = 0.0f;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const float w = hash_grid::corner_weight(cell, c);
-    const uint32_t idx = lv.offset[l] + hash_grid::corner_index(
-                                            cell, c, lv.res[l], lv.dense[l],
-                                            lv.params[l]);
-    float v0, v1;
-    if (PACKED) {
-      const uint32_t word = __ldg(static_cast<const uint32_t*>(table) + idx);
-      v0 = bf16::hi(word);
-      v1 = bf16::lo(word);
-    } else {
-      const float2 v = __ldg(static_cast<const float2*>(table) + idx);
-      v0 = v.x;
-      v1 = v.y;
-    }
-    f0 = __fadd_rn(f0, __fmul_rn(v0, w));
-    f1 = __fadd_rn(f1, __fmul_rn(v1, w));
+    f0 = __fadd_rn(f0, __fmul_rn(v0[c], w));
+    f1 = __fadd_rn(f1, __fmul_rn(v1[c], w));
   }
-  out[t] = make_float2(f0, f1);
+  return make_float2(f0, f1);
+}
+
+// Block b encodes samples [32 b, 32 b + 32) at every level: warp w takes
+// levels w, w + warps, ...; each round of levels is staged in shared
+// memory and stored as the samples' rows of the (N, L) float2 output.
+template <bool PACKED>
+__global__ void __launch_bounds__(FWD_WARPS * 32, 2)
+hash_grid_train_fwd_kernel(const float* __restrict__ x,
+                           const void* __restrict__ table,
+                           const Level* __restrict__ levels, int n_levels,
+                           int n, float2* __restrict__ out) {
+  __shared__ float pos[3 * FWD_SAMPLES];
+  // a sample's row padded to an odd number of float2: the lanes' stores
+  // of one level fall in different banks
+  __shared__ float2 stage[FWD_SAMPLES][FWD_WARPS + 1];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s0 = blockIdx.x * FWD_SAMPLES;
+  const int ns = min(FWD_SAMPLES, n - s0);
+  for (int i = threadIdx.x; i < 3 * ns; i += blockDim.x)
+    pos[i] = x[3 * (size_t)s0 + i];
+  __syncthreads();
+  // lanes past the last sample encode sample 0 again; nothing stores them
+  const int s = lane < ns ? lane : 0;
+  const float px = pos[3 * s], py = pos[3 * s + 1], pz = pos[3 * s + 2];
+  for (int l0 = 0; l0 < n_levels; l0 += warps) {
+    if (l0 + warp < n_levels)
+      stage[lane][warp] =
+          level_features<PACKED>(table, levels[l0 + warp], px, py, pz);
+    __syncthreads();
+    const int g = min(warps, n_levels - l0);
+    for (int i = threadIdx.x; i < ns * g; i += blockDim.x) {
+      const int si = i / g, k = i - si * g;
+      out[(size_t)(s0 + si) * n_levels + l0 + k] = stage[si][k];
+    }
+    __syncthreads();
+  }
 }
 
 __device__ __forceinline__ void add2(float2* dst, float a, float b) {
@@ -157,24 +226,25 @@ __device__ __forceinline__ void group_add(float2* dtable, uint32_t key,
 template <bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 hash_grid_train_bwd_kernel(const float* __restrict__ x,
-                           const float2* __restrict__ gout, Levels lv,
-                           int n_levels, int n, int spread,
-                           float2* __restrict__ dtable) {
+                           const float2* __restrict__ gout,
+                           const Level* __restrict__ levels, int n_levels,
+                           int n, int spread, float2* __restrict__ dtable) {
   __shared__ float4 terms[THREADS];  // a group's terms, for its leader
   const int n_tiles = gridDim.x / n_levels;
   const int b = blockIdx.x;
   const int l = n_levels - 1 - (spread ? b % n_levels : b / n_tiles);
   const int s = (spread ? b / n_levels : b % n_tiles) * THREADS + threadIdx.x;
   const bool on = s < n;  // an idle lane still takes part in the groups
-  const int res = lv.res[l];
-  const bool dense = lv.dense[l] != 0;
-  const uint32_t params = lv.params[l];
+  const Level lv = levels[l];
+  const int res = lv.res;
+  const bool dense = lv.dense != 0;
+  const uint32_t params = lv.params;
   const uint32_t mask = hash_grid::hash_mask(params);
-  const uint32_t offset = (uint32_t)lv.offset[l];
+  const uint32_t offset = (uint32_t)lv.offset;
   const int sl = on ? s : 0;
   const float2 g = gout[(size_t)sl * n_levels + l];
   const Cell cell = hash_grid::cell_of(x[3 * sl], x[3 * sl + 1],
-                                       x[3 * sl + 2], lv.scale[l]);
+                                       x[3 * sl + 2], lv.scale);
   float4* const warp_terms = terms + (threadIdx.x & ~31);
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -212,51 +282,39 @@ hash_grid_train_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-int blocks_for(long long n_threads) {
-  return (int)((n_threads + THREADS - 1) / THREADS);
-}
-
 }  // namespace
 
-extern "C" int hash_grid_train_fwd_launch(
-    const void* x, int n, const void* table, int packed,
-    const float* level_scale, const int* level_res, const int* level_dense,
-    const unsigned* level_params, const int* level_offset, int n_levels,
-    void* out, void* stream) {
-  if (n_levels < 1 || n_levels > hash_grid::MAX_LEVELS)
-    return (int)cudaErrorInvalidValue;
-  const Levels lv = hash_grid::make_levels(level_scale, level_res,
-                                           level_dense, level_params,
-                                           level_offset, n_levels);
-  const long long n_threads = (long long)n * n_levels;
+// x (n, 3) -> out (n, n_levels) float2; `levels` is the device array of
+// n_levels Level records.
+extern "C" int hash_grid_train_fwd_launch(const void* x, int n,
+                                          const void* table, int packed,
+                                          const void* levels, int n_levels,
+                                          void* out, void* stream) {
+  if (n < 1 || n_levels < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + FWD_SAMPLES - 1) / FWD_SAMPLES;
+  const int threads = 32 * (n_levels < FWD_WARPS ? n_levels : FWD_WARPS);
   const cudaStream_t st = (cudaStream_t)stream;
+  const Level* lv = (const Level*)levels;
   if (packed)
-    hash_grid_train_fwd_kernel<true><<<blocks_for(n_threads), THREADS, 0,
-                                       st>>>(
-        (const float*)x, table, lv, n_levels, n_threads, (float2*)out);
+    hash_grid_train_fwd_kernel<true><<<blocks, threads, 0, st>>>(
+        (const float*)x, table, lv, n_levels, n, (float2*)out);
   else
-    hash_grid_train_fwd_kernel<false><<<blocks_for(n_threads), THREADS, 0,
-                                        st>>>(
-        (const float*)x, table, lv, n_levels, n_threads, (float2*)out);
+    hash_grid_train_fwd_kernel<false><<<blocks, threads, 0, st>>>(
+        (const float*)x, table, lv, n_levels, n, (float2*)out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int hash_grid_train_bwd_launch(
-    const void* x, const void* gout, int n, int packed,
-    const float* level_scale, const int* level_res, const int* level_dense,
-    const unsigned* level_params, const int* level_offset, int n_levels,
-    void* dtable, void* stream) {
-  if (n_levels < 1 || n_levels > hash_grid::MAX_LEVELS)
-    return (int)cudaErrorInvalidValue;
-  const Levels lv = hash_grid::make_levels(level_scale, level_res,
-                                           level_dense, level_params,
-                                           level_offset, n_levels);
+// x (n, 3), gout (n, n_levels) float2 -> += dtable (total_params, 2).
+extern "C" int hash_grid_train_bwd_launch(const void* x, const void* gout,
+                                          int n, int packed,
+                                          const void* levels, int n_levels,
+                                          long long total_params,
+                                          void* dtable, void* stream) {
+  if (n < 1 || n_levels < 1) return (int)cudaErrorInvalidValue;
   const int blocks = (n + THREADS - 1) / THREADS * n_levels;
-  // the gradient's bytes: the last level's offset plus its rows
-  const double bytes =
-      8.0 * ((double)lv.offset[n_levels - 1] + lv.params[n_levels - 1]);
-  const int spread = bytes <= SPREAD_BYTES;
+  const int spread = 8.0 * (double)total_params <= SPREAD_BYTES;
   const cudaStream_t st = (cudaStream_t)stream;
+  const Level* lv = (const Level*)levels;
   if (packed)
     hash_grid_train_bwd_kernel<true><<<blocks, THREADS, 0, st>>>(
         (const float*)x, (const float2*)gout, lv, n_levels, n, spread,

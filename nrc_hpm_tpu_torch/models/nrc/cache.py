@@ -1,16 +1,17 @@
 """NeuralRadianceCache: encoding + MLP + online training state.
 
 Port of ``nrc_hpm_tpu/models/nrc/cache.py``.  Inference serves the EMA
-parameters and dispatches as the JAX package does: in bfloat16 the
-default encoding (hash grid + OneBlob) runs the fused encode + MLP kernel
-(K3), every other encoding the split encode (the hash grid from the
-packed table through K7's forward) and then the fused MLP kernel (K4); in
-float32 the plain MLP runs in float32.  Training takes
-``train_batch_count`` optimizer steps per frame: the forward and the table
-gradient go through the hash-grid training kernels (K7, via
-``CompositeEncoding``) when there is a hash grid, the MLP backward through
-autograd, then Adam (or SGD) and the debiased parameter EMA as plain
-tensor functions in optax's operation order.  Adam is dense over every
+parameters.  In bfloat16 the default encoding (hash grid + OneBlob) runs
+the fused encode + MLP kernel (K3) where K3 takes its shapes (a 64-wide
+MLP, <= 16 levels); every other cache runs the split encode (the hash
+grid from the packed table through K7's forward) and then the fused MLP
+kernel (K4) up to width 256, the bf16 mlp_apply above it (the JAX
+package's ``use_fused``); in float32 the plain MLP runs in float32.
+Training takes ``train_batch_count`` optimizer steps per frame: the
+forward and the table gradient go through the hash-grid training kernels
+(K7, via ``CompositeEncoding``) when there is a hash grid, the MLP
+backward through autograd, then Adam (or SGD) and the debiased parameter
+EMA as plain tensor functions in optax's operation order.  Adam is dense over every
 table row, as optax's is.  The losses are tcnn's, with the denominators
 detached.
 
@@ -29,8 +30,8 @@ import numpy as np
 import torch
 
 from ...config import AppConfig
-from ...ops.fused_encode_mlp import fused_encode_mlp_infer
-from ...ops.fused_mlp import fused_mlp_infer
+from ...ops import fused_encode_mlp, fused_mlp
+from ...utils import prng
 from .encoding import CompositeEncoding, pack_table_bf16
 from .mlp import compute_dtype, init_mlp, mlp_apply
 
@@ -185,14 +186,15 @@ class NeuralRadianceCache:
         self.compute_dtype = compute_dtype(cfg.mlp_dtype)
         self.train_fast = cfg.hash_train_fast
 
-    def init_state(self, generator: torch.Generator, device="cuda"
-                   ) -> NrcState:
-        """Random init from a CPU generator: hash table uniform in
-        [-1e-4, 1e-4], He-uniform MLP."""
+    def init_state(self, key: torch.Tensor, device="cuda") -> NrcState:
+        """Random init from a threefry key (``utils/prng.py``), split into
+        the encoding's and the MLP's as the JAX package splits it: hash
+        table uniform in [-1e-4, 1e-4], He-uniform MLP."""
+        k_enc, k_mlp = prng.split(key)
         params = {
-            "encoding": self.encoding.init_params(generator),
-            "mlp": init_mlp(generator, self.encoding.out_dim, self.width,
-                            self.depth, self.N_OUTPUT),
+            "encoding": self.encoding.init_params(k_enc, device),
+            "mlp": init_mlp(k_mlp, self.encoding.out_dim, self.width,
+                            self.depth, self.N_OUTPUT, device),
         }
         return self.state_from_params(params, device)
 
@@ -210,26 +212,34 @@ class NeuralRadianceCache:
     def apply(self, params: dict, x5: torch.Tensor,
               packed: torch.Tensor | None = None, train_fast: bool = False,
               fused: bool = False) -> torch.Tensor:
-        """Encode, then the MLP: through K4 with ``fused`` in bfloat16,
-        else mlp_apply in the compute dtype (differentiable)."""
+        """Encode, then the MLP: through K4 with ``fused`` in bfloat16 at
+        widths K4 serves (the JAX package's ``use_fused``), else mlp_apply
+        in the compute dtype (differentiable)."""
         feats = self.encoding(params["encoding"], x5, packed=packed,
                               train_fast=train_fast)
-        if fused and self.compute_dtype == torch.bfloat16:
-            return fused_mlp_infer(params["mlp"], feats, self.N_OUTPUT)
+        if (fused and self.compute_dtype == torch.bfloat16
+                and fused_mlp.use_fused(self.width)):
+            return fused_mlp.fused_mlp_infer(params["mlp"], feats,
+                                             self.N_OUTPUT)
         return mlp_apply(params["mlp"], feats, self.compute_dtype)
 
     def infer(self, state: NrcState, x5: torch.Tensor) -> torch.Tensor:
         """(N, 5) inputs -> (N, 3) predictions with the EMA parameters,
         the hash table packed to bf16 pairs like tcnn's half-precision
-        inference parameters."""
+        inference parameters.  In bfloat16 the default encoding runs K3
+        where K3 takes its shapes; every other cache the split encode and
+        K4 (``apply``)."""
         ema = state.ema_params
         enc = self.encoding
         packed = None if enc.grid_spec is None \
             else pack_table_bf16(ema["encoding"]["hash_table"])
-        if (self.compute_dtype == torch.bfloat16 and enc.cfg.pos_id == 0
-                and enc.cfg.dir_id == 0):
-            return fused_encode_mlp_infer(
-                packed, ema["mlp"]["layers"], x5.contiguous(), enc.grid_spec,
+        layers = ema["mlp"]["layers"]
+        if (self.compute_dtype == torch.bfloat16 and enc.cfg.dir_id == 0
+                and fused_encode_mlp.takes(enc.grid_spec,
+                                           enc.cfg.oneblob_n_bins, layers,
+                                           self.N_OUTPUT)):
+            return fused_encode_mlp.fused_encode_mlp_infer(
+                packed, layers, x5.contiguous(), enc.grid_spec,
                 n_bins=enc.cfg.oneblob_n_bins, out_dim=self.N_OUTPUT)
         return self.apply(ema, x5, packed=packed, fused=True)
 

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ...config import EncodingConfig
-from ...utils import rng
+from ...utils import prng, rng
 
 PRIMES = (1, 2654435761, 805459861)
 
@@ -73,11 +73,12 @@ class HashGridSpec:
         return self.n_levels * self.n_features
 
 
-def init_hash_grid(generator: torch.Generator, spec: HashGridSpec
+def init_hash_grid(key: torch.Tensor, spec: HashGridSpec, device="cuda"
                    ) -> torch.Tensor:
-    """tcnn's init: features uniform in [-1e-4, 1e-4]."""
-    u = torch.rand((spec.total_params, spec.n_features), generator=generator)
-    return (u * 2.0 - 1.0) * 1e-4
+    """tcnn's init: features uniform in [-1e-4, 1e-4], drawn from the
+    threefry ``key`` on ``device`` as the JAX package draws them."""
+    return prng.uniform(key, (spec.total_params, spec.n_features), -1e-4,
+                        1e-4, device)
 
 
 def pack_table_bf16(table: torch.Tensor) -> torch.Tensor:
@@ -241,10 +242,10 @@ class CompositeEncoding:
         self.raw_dim = pos_dim + dir_dim
         self.out_dim = (self.raw_dim + 15) // 16 * 16
 
-    def init_params(self, generator: torch.Generator) -> dict:
+    def init_params(self, key: torch.Tensor, device="cuda") -> dict:
         if self.grid_spec is None:
             return {}
-        return {"hash_table": init_hash_grid(generator, self.grid_spec)}
+        return {"hash_table": init_hash_grid(key, self.grid_spec, device)}
 
     def __call__(self, params: dict, x5: torch.Tensor,
                  packed: torch.Tensor | None = None,

@@ -10,20 +10,23 @@ products stay ``torch.matmul``, as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
-import math
-
+import numpy as np
 import torch
 
+from ...utils import prng
 
-def init_mlp(generator: torch.Generator, in_dim: int, width: int,
-             depth: int, out_dim: int = 3) -> dict:
-    """He-uniform init of the (in, out) layer matrices."""
+
+def init_mlp(key: torch.Tensor, in_dim: int, width: int, depth: int,
+             out_dim: int = 3, device="cuda") -> dict:
+    """He-uniform init of the (in, out) layer matrices, one split of the
+    threefry ``key`` a layer, as the JAX package draws them (its bound is
+    the float32 square root of float32(6 / in))."""
     dims = [in_dim] + [width] * depth + [out_dim]
+    keys = prng.split(key, len(dims) - 1)
     layers = []
-    for a, b in zip(dims[:-1], dims[1:]):
-        bound = math.sqrt(6.0 / a)
-        u = torch.rand((a, b), generator=generator)
-        layers.append((u * 2.0 - 1.0) * bound)
+    for k, (a, b) in zip(keys, zip(dims[:-1], dims[1:])):
+        bound = np.sqrt(np.float32(6.0 / a))
+        layers.append(prng.uniform(k, (a, b), -bound, bound, device))
     return {"layers": layers}
 
 

@@ -79,6 +79,28 @@ def _lib():
     return lib
 
 
+def _refusal(spec, n_bins: int, layers, out_dim: int):
+    """Why K3 does not take these shapes, or None where it does: a 3-D,
+    2-feature grid of <= 16 levels, <= 8 OneBlob bins, a 64-wide MLP whose
+    in_dim holds the features within 64, and <= 8 outputs."""
+    if not (spec.n_dims == 3 and spec.n_features == 2
+            and spec.n_levels <= MAX_LEVELS and n_bins <= MAX_BINS):
+        return "3-D, 2-feature grid with <= 16 levels, <= 8 bins"
+    in_dim = layers[0].shape[0]
+    if not (len(layers) >= 2 and spec.out_dim + 2 * n_bins <= in_dim <= WIDTH
+            and layers[0].shape[1] == WIDTH
+            and all(w.shape == (WIDTH, WIDTH) for w in layers[1:-1])
+            and layers[-1].shape == (WIDTH, out_dim) and out_dim <= OUT_PAD):
+        return "MLP must be 64 wide with in_dim <= 64, out_dim <= 8"
+    return None
+
+
+def takes(spec, n_bins: int, layers, out_dim: int) -> bool:
+    """The cache's test, made before any launch: the default encoding's
+    shapes that K3 serves (the others take the split encode and K4)."""
+    return spec is not None and _refusal(spec, n_bins, layers, out_dim) is None
+
+
 def _check(packed_table, layers, x5, spec, n_bins, out_dim):
     name = "fused_encode_mlp_infer"
     dev = x5.device
@@ -90,17 +112,8 @@ def _check(packed_table, layers, x5, spec, n_bins, out_dim):
     _build.require(name, packed_table.dtype == torch.int32
                    and packed_table.shape == (spec.total_params,),
                    "packed_table must be (total_params,) int32")
-    _build.require(name, spec.n_dims == 3 and spec.n_features == 2
-                   and spec.n_levels <= MAX_LEVELS and n_bins <= MAX_BINS,
-                   "3-D, 2-feature grid with <= 16 levels, <= 8 bins")
-    in_dim = layers[0].shape[0]
-    _build.require(name, len(layers) >= 2 and in_dim <= WIDTH
-                   and in_dim >= spec.out_dim + 2 * n_bins
-                   and all(w.shape == (WIDTH, WIDTH) for w in layers[1:-1])
-                   and layers[0].shape[1] == WIDTH
-                   and layers[-1].shape == (WIDTH, out_dim)
-                   and out_dim <= OUT_PAD,
-                   "MLP must be 64 wide with in_dim <= 64, out_dim <= 8")
+    why = _refusal(spec, n_bins, layers, out_dim)
+    _build.require(name, why is None, why)
 
 
 def fused_encode_mlp_infer(packed_table: torch.Tensor, layers, x5,

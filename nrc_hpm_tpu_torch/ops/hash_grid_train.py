@@ -13,21 +13,25 @@ table (the JAX ``hash_grid_encode``).
 ``hash_grid_train_fwd`` / ``hash_grid_train_bwd`` take the plain PyTorch
 versions for CPU tensors (a gather and trilinear sum; ``index_add_``) and
 launch the kernels for CUDA tensors; ``.launches`` counts kernel launches.
-``HashGridTrainEncode`` is the autograd pair; x gets no gradient.
+Both kernels take any number of levels: they read the level constants
+from a small device array (``level_table``).  ``HashGridTrainEncode`` is
+the autograd pair; x gets no gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from ..models.nrc.encoding import (HashGridSpec, _corner_indices,
                                    hash_grid_encode_packed, pack_table_bf16)
 from . import _build
 
-MAX_LEVELS = 16
 _LIB = "hash_grid_train"
+LEVEL_WORDS = 8   # int32 words of one hash_grid::Level record
 
 
 def hash_grid_train_fwd_plain(table, x, spec: HashGridSpec, packed: bool
@@ -58,37 +62,38 @@ def hash_grid_train_bwd_plain(x, gout, spec: HashGridSpec, packed: bool
 def _lib():
     lib = _build.load(_LIB)
     P, I = ctypes.c_void_p, ctypes.c_int
-    levels = [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(I),
-              ctypes.POINTER(I), ctypes.POINTER(ctypes.c_uint),
-              ctypes.POINTER(I), I]
-    lib.hash_grid_train_fwd_launch.argtypes = [P, I, P, I, *levels, P, P]
+    lib.hash_grid_train_fwd_launch.argtypes = [P, I, P, I, P, I, P, P]
     lib.hash_grid_train_fwd_launch.restype = I
-    lib.hash_grid_train_bwd_launch.argtypes = [P, P, I, I, *levels, P, P]
+    lib.hash_grid_train_bwd_launch.argtypes = [P, P, I, I, P, I,
+                                               ctypes.c_longlong, P, P]
     lib.hash_grid_train_bwd_launch.restype = I
     return lib
 
 
-def _levels(spec: HashGridSpec) -> list:
-    L = spec.n_levels
+def level_records(spec: HashGridSpec) -> np.ndarray:
+    """(L, LEVEL_WORDS) int32: per level the hash_grid::Level record (scale
+    as its float32 bits, resolution, dense flag, table rows, row offset,
+    three unused words)."""
+    rec = np.zeros((spec.n_levels, LEVEL_WORDS), np.int32)
+    for lv in range(spec.n_levels):
+        rec[lv, 0] = np.float32(spec.level_scale(lv)).view(np.int32)
+        rec[lv, 1:5] = (spec.level_resolution(lv), spec.level_is_dense(lv),
+                        spec.level_params(lv), spec.level_offsets[lv])
+    return rec
 
-    def arr(ctype, vals):
-        return (ctype * L)(*vals)
 
-    return [arr(ctypes.c_float, [spec.level_scale(lv) for lv in range(L)]),
-            arr(ctypes.c_int, [spec.level_resolution(lv) for lv in range(L)]),
-            arr(ctypes.c_int, [int(spec.level_is_dense(lv))
-                               for lv in range(L)]),
-            arr(ctypes.c_uint, [spec.level_params(lv) for lv in range(L)]),
-            arr(ctypes.c_int, spec.level_offsets[:-1]), L]
+@functools.cache
+def level_table(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
+    """level_records on ``device``, made once per grid and device."""
+    return torch.from_numpy(level_records(spec)).to(device)
 
 
 def _check(name, x, spec: HashGridSpec, tensors: dict):
     _build.require_cuda(name, dict(x=x, **tensors), x.device)
     _build.require(name, x.dtype == torch.float32 and x.ndim == 2
                    and x.shape[1] == 3, "x must be (N, 3) float32")
-    _build.require(name, spec.n_dims == 3 and spec.n_features == 2
-                   and spec.n_levels <= MAX_LEVELS,
-                   "3-D, 2-feature grid with <= 16 levels")
+    _build.require(name, spec.n_dims == 3 and spec.n_features == 2,
+                   "3-D, 2-feature grid")
 
 
 def hash_grid_train_fwd(table, x, spec: HashGridSpec, packed: bool
@@ -103,6 +108,8 @@ def hash_grid_train_fwd(table, x, spec: HashGridSpec, packed: bool
         else ((spec.total_params, 2), torch.float32)
     _build.require(name, (tuple(table.shape), table.dtype) == want,
                    f"table must be {want[0]} {want[1]}")
+    _build.require(name, table.data_ptr() % 16 == 0,
+                   "table must be 16-byte aligned (its row pairs load as one)")
     n = x.shape[0]
     out = torch.empty((n, spec.out_dim), dtype=torch.float32,
                       device=x.device)
@@ -110,7 +117,8 @@ def hash_grid_train_fwd(table, x, spec: HashGridSpec, packed: bool
         return out
     lib = _lib()
     rc = lib.hash_grid_train_fwd_launch(
-        _build.ptr(x), n, _build.ptr(table), int(packed), *_levels(spec),
+        _build.ptr(x), n, _build.ptr(table), int(packed),
+        _build.ptr(level_table(spec, x.device)), spec.n_levels,
         _build.ptr(out), _build.stream_ptr(x.device))
     _build.check(lib, _LIB, rc)
     hash_grid_train_fwd.launches += 1
@@ -134,8 +142,9 @@ def hash_grid_train_bwd(x, gout, spec: HashGridSpec, packed: bool
         return dtable
     lib = _lib()
     rc = lib.hash_grid_train_bwd_launch(
-        _build.ptr(x), _build.ptr(gout), n, int(packed), *_levels(spec),
-        _build.ptr(dtable), _build.stream_ptr(x.device))
+        _build.ptr(x), _build.ptr(gout), n, int(packed),
+        _build.ptr(level_table(spec, x.device)), spec.n_levels,
+        spec.total_params, _build.ptr(dtable), _build.stream_ptr(x.device))
     _build.check(lib, _LIB, rc)
     hash_grid_train_bwd.launches += 1
     return dtable

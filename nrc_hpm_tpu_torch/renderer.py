@@ -26,7 +26,7 @@ from .lights import LightFlags, Lights, lights_from_scene, sample_env_map
 from .models.nrc.cache import NeuralRadianceCache, NrcState
 from .ring_buffer import RingBuffer, ring_pop, ring_push, ring_wrap
 from .sampling import dir_to_spherical_norm
-from .utils import rng
+from .utils import prng, rng
 from .volume import Volume, sky_uvw
 
 
@@ -74,7 +74,7 @@ class NrcRenderState:
     blend_index: int
     ring: RingBuffer             # self-training (pos, dir) records
     nrc: NrcState
-    generator: torch.Generator   # draws the per-frame seeds
+    key: torch.Tensor            # threefry key of the per-frame seeds
 
 
 class NrcRenderer:
@@ -101,28 +101,31 @@ class NrcRenderer:
     def init_state(self, seed: int = 0, nrc: Optional[NrcState] = None
                    ) -> NrcRenderState:
         """Fresh accumulation; the cache is ``nrc`` or a random init from
-        ``seed``."""
-        gen = torch.Generator().manual_seed(seed)
+        ``seed``, through the JAX package's key chain: ``PRNGKey(seed)``,
+        split into the state's key and the cache's."""
+        key, sub = prng.split(prng.prng_key(seed))
         if nrc is None:
-            nrc = self.cache.init_state(gen, self.device)
+            nrc = self.cache.init_state(sub, self.device)
         return NrcRenderState(
             image=torch.zeros((self.height, self.width, 4),
                               dtype=torch.float32, device=self.device),
             blend_index=1,
             ring=RingBuffer.create(self.cfg.train_ring_size, self.device),
-            nrc=nrc, generator=gen)
+            nrc=nrc, key=key)
 
     def step(self, state: NrcRenderState, camera: Camera,
              train: bool = True,
              frame_random: Optional[torch.Tensor] = None) -> NrcRenderState:
-        """One frame; ``train=False`` renders with a frozen cache.
-        ``frame_random`` (4,) overrides the frame seed that is otherwise
-        drawn from ``state.generator``."""
+        """One frame; ``train=False`` renders with a frozen cache.  The
+        frame seed is drawn from a split of ``state.key``, as the JAX
+        package draws it; ``frame_random`` (4,) overrides it (the key is
+        split all the same)."""
         H, W = self.height, self.width
         n = H * W
         vol = self.vol
+        key, sub = prng.split(state.key)
         if frame_random is None:
-            frame_random = rng.frame_random(state.generator)
+            frame_random = rng.frame_random(sub)
         ro, rd, frag_uv = pixel_rays(camera, W, H)
         rng_state = rng.init_state(frag_uv, frame_random).reshape(n)
         flat_rd = rd.reshape(n, 3)
@@ -148,7 +151,7 @@ class NrcRenderer:
             ring, nrc = self.train(state.nrc, ring, prim, frame_random)
         return dataclasses.replace(state, image=image,
                                    blend_index=state.blend_index + 1,
-                                   ring=ring, nrc=nrc)
+                                   ring=ring, nrc=nrc, key=key)
 
     def train_rays(self, ring: RingBuffer, prim: dict):
         """The train grid's rays: scattered pixels continue from their

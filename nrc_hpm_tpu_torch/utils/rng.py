@@ -86,6 +86,8 @@ def masked_uniform(state: torch.Tensor, active: torch.Tensor, maxval=1.0):
     return sample, torch.where(active, new_state, state)
 
 
-def frame_random(generator: torch.Generator) -> torch.Tensor:
-    """Per-frame (4,) seed vector in [0, 1) from a CPU generator."""
-    return torch.rand(4, generator=generator, dtype=torch.float32)
+def frame_random(key: torch.Tensor) -> torch.Tensor:
+    """Per-frame (4,) seed vector in [0, 1): ``jax.random.uniform`` of a
+    threefry key (``utils/prng.py``)."""
+    from .prng import uniform   # prng imports this module
+    return uniform(key, (4,))

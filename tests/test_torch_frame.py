@@ -131,3 +131,30 @@ def test_blend_reset_and_train_guard(frames):
     frozen = tr.step(ts, cam, train=False, frame_random=fr)
     assert frozen.nrc.step == ts.nrc.step == 0
     assert torch.equal(frozen.nrc.params["mlp"]["layers"][0], layer0)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_seeded_frames_match_jax(seed):
+    """init_state(seed) and two frozen frames with no frame_random
+    override: the cache and the frame seeds come from the port's threefry
+    key chain, as the JAX renderer draws them, so the images agree as
+    test_frozen_frame_matches_jax holds them."""
+    jc, tc = _cfgs()
+    jv, tv = _volumes()
+    jr, tr = jren.NrcRenderer(jc, vol=jv), tren.NrcRenderer(tc, vol=tv)
+    js, ts = jr.init_state(seed), tr.init_state(seed)
+    jcam_ = jcam.Camera.reference_camera(W / H)
+    tcam_ = tcam.Camera.reference_camera(W / H, device="cpu")
+    for _ in range(2):
+        js = jr.step(js, jcam_, train=False)
+        ts = tr.step(ts, tcam_, train=False)
+    jimg, timg = np.asarray(js.image), ts.image.numpy()
+    env = 0.1
+    scat_j = np.abs(jimg[..., :3] - env).max(-1) > 1e-6
+    scat_t = np.abs(timg[..., :3] - env).max(-1) > 1e-6
+    agree = scat_j == scat_t
+    assert agree.mean() >= 0.99, f"did_scatter agrees on {agree.mean():.4f}"
+    assert 0.05 < scat_t.mean() < 0.95, "some but not all pixels scatter"
+    err = np.abs(timg - jimg).max(-1)
+    assert err[agree].max() <= 1e-3, "image within 1e-3 on agreeing pixels"
+    assert np.array_equal(ts.key.numpy(), np.asarray(js.key).astype(np.int64))

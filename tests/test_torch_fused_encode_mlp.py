@@ -178,8 +178,17 @@ def _f32(u16):
     return (u16.astype(np.uint32) << 16).view(np.float32)
 
 
+def _offset(row, chunk, k):
+    """mlp_mma::offset: byte offset of 16-byte chunk `chunk` of row `row`
+    of k-value rows (XOR-swizzled where k % 64 == 0, else rows padded by
+    one chunk)."""
+    if k % 64 == 0:
+        return row * 2 * k + ((chunk ^ (row & 7)) << 4)
+    return row * (2 * k + 16) + (chunk << 4)
+
+
 def _swz(row, chunk):
-    return row * 128 + ((chunk ^ (row & 7)) << 4)
+    return _offset(row, chunk, 64)
 
 
 def _ldmatrix_x4(mem, addr):
@@ -274,6 +283,197 @@ def test_mma_fragment_walk_computes_the_mlp(in_dim, depth):
     assert (np.abs(got[:, :3] - want) <= 1e-5).mean() >= 0.9
 
 
+# -- K4 (csrc/fused_mlp.cu) on the same header: its weight block placed
+# in shared memory as load_weights places it, both designs' walks ----------
+
+_MI, _R8 = np.arange(32) >> 3, np.arange(32) & 7
+_G, _TQ = np.arange(32) >> 2, np.arange(32) & 3
+
+
+def _place(mem, at, rows_u16, k):
+    """load_weights / load_features: (rows, k) bf16 values into mem at
+    byte ``at`` in mlp_mma's layout."""
+    for r in range(rows_u16.shape[0]):
+        for c in range(k // 8):
+            o = (at + _offset(r, c, k)) // 2
+            mem[o:o + 8] = rows_u16[r, 8 * c:8 * c + 8]
+
+
+def _features(feats, k_in):
+    x = np.zeros((feats.shape[0], k_in), np.float32)
+    x[:, :feats.shape[1]] = feats
+    return _bf16(x)
+
+
+def _a_step(mem, tile, row0, ks, k):
+    """mlp_mma::load_a_step."""
+    return _ldmatrix_x4(mem, lambda l: tile + _offset(
+        row0 + ((_MI[l] & 1) << 3) + _R8[l], 2 * ks + (_MI[l] >> 1), k))
+
+
+def _b_pair(mem, w, nt, ks, k):
+    """The B fragments of n-tiles nt, nt + 1 at k-step ks (mma_step)."""
+    return _ldmatrix_x4(mem, lambda l: w + _offset(
+        8 * nt + ((_MI[l] >> 1) << 3) + _R8[l], 2 * ks + (_MI[l] & 1), k))
+
+
+def _relu_to_a(acc):
+    """mlp_mma::relu_to_a: acc (MT, N/8, 32, 4) -> [mt][j] A fragments."""
+    h = _bf16(np.maximum(acc, 0.0))
+    return [[np.stack([h[mt, 2 * j][:, 0:2], h[mt, 2 * j][:, 2:4],
+                       h[mt, 2 * j + 1][:, 0:2], h[mt, 2 * j + 1][:, 2:4]],
+                      axis=1) for j in range(h.shape[1] // 2)]
+            for mt in range(h.shape[0])]
+
+
+def _output(a_of_ks, mem, w, k):
+    """mlp_mma::output_layer (one row tile): k-step pairs through
+    ldmatrix.x4, an odd last k-step through .x2."""
+    o = np.zeros((32, 4), np.float32)
+    ks = 0
+    while ks + 1 < k // 16:
+        b = _ldmatrix_x4(mem, lambda l: w + _offset(_R8[l], 2 * ks + _MI[l],
+                                                    k))
+        _mma(o, a_of_ks(ks), b[:, 0], b[:, 1])
+        _mma(o, a_of_ks(ks + 1), b[:, 2], b[:, 3])
+        ks += 2
+    if (k // 16) % 2:
+        b = _ldmatrix_x4(mem, lambda l: w + _offset(
+            _R8[l], 2 * ks + (_MI[l] & 1), k))
+        _mma(o, a_of_ks(ks), b[:, 0], b[:, 1])
+    return o
+
+
+def _rows_of(o):
+    """store_out: o[2 h + e] of lane l is row g + 8 h, column 2 tq + e."""
+    out = np.zeros((16, 8), np.float32)
+    for h in range(2):
+        for e in range(2):
+            out[_G + 8 * h, 2 * _TQ + e] = o[:, 2 * h + e]
+    return out
+
+
+def _k4_resident(feats, layers):
+    """One warp tile of fused_mlp_resident_kernel<W>."""
+    from nrc_hpm_tpu_torch.ops import fused_mlp as fm
+
+    k_in, W, stream = fm.plan(layers, feats.shape[1], layers[-1].shape[1])
+    assert not stream
+    MT, depth = (2 if W <= 64 else 1), len(layers) - 1
+    block = fm.kernel_weights(layers, k_in, W).view(torch.int16).numpy() \
+        .view(np.uint16)
+    w0, wh = W * fm.row_bytes(k_in), W * fm.row_bytes(W)
+    out_at = w0 + (depth - 1) * wh
+    tile = out_at + fm.OUT_PAD * fm.row_bytes(W)
+    mem = np.zeros((tile + 16 * MT * fm.row_bytes(k_in)) // 2, np.uint16)
+    _place(mem, 0, block[:W * k_in].reshape(W, k_in), k_in)
+    at = W * k_in
+    for m in range(1, depth):
+        _place(mem, w0 + (m - 1) * wh, block[at:at + W * W].reshape(W, W), W)
+        at += W * W
+    _place(mem, out_at, block[at:].reshape(fm.OUT_PAD, W), W)
+    _place(mem, tile, _features(feats, k_in), k_in)
+    acc = np.zeros((MT, W // 8, 32, 4), np.float32)
+    for ks in range(k_in // 16):
+        a = [_a_step(mem, tile, 16 * mt, ks, k_in) for mt in range(MT)]
+        for nt in range(0, W // 8, 2):
+            b = _b_pair(mem, 0, nt, ks, k_in)
+            for mt in range(MT):
+                _mma(acc[mt, nt], a[mt], b[:, 0], b[:, 1])
+                _mma(acc[mt, nt + 1], a[mt], b[:, 2], b[:, 3])
+    h = _relu_to_a(acc)
+    for m in range(1, depth):
+        acc = np.zeros((MT, W // 8, 32, 4), np.float32)
+        for ks in range(W // 16):
+            for nt in range(0, W // 8, 2):
+                b = _b_pair(mem, w0 + (m - 1) * wh, nt, ks, W)
+                for mt in range(MT):
+                    _mma(acc[mt, nt], h[mt][ks], b[:, 0], b[:, 1])
+                    _mma(acc[mt, nt + 1], h[mt][ks], b[:, 2], b[:, 3])
+        h = _relu_to_a(acc)
+    return np.concatenate([_rows_of(_output(lambda ks: h[mt][ks], mem,
+                                            out_at, W))
+                           for mt in range(MT)])
+
+
+def _k4_stream(feats, layers):
+    """Warp 1 (rows 16-31 of the block tile) of fused_mlp_stream_kernel:
+    the weight chunks placed in the ring's slots in turn, the activations
+    through the two shared tiles."""
+    from nrc_hpm_tpu_torch.ops import fused_mlp as fm
+
+    k_in, W, stream = fm.plan(layers, feats.shape[1], layers[-1].shape[1])
+    assert stream
+    depth, row0, chunk = len(layers) - 1, 16, 64
+    block = fm.kernel_weights(layers, k_in, W).view(torch.int16).numpy() \
+        .view(np.uint16)
+    k_max = max(k_in, W)
+    tile, slot = 128 * fm.row_bytes(k_max), chunk * fm.row_bytes(k_max)
+    act, slots = (0, tile), (2 * tile, 2 * tile + slot)
+    mem = np.zeros((2 * tile + 2 * slot) // 2, np.uint16)
+    _place(mem, act[0] + row0 * fm.row_bytes(k_in), _features(feats, k_in),
+           k_in)
+    per = -(-W // chunk)
+    for j in range(depth * per + 1):
+        layer = min(j // per, depth)
+        n0 = (j - layer * per) * chunk if layer < depth else 0
+        rows = min(chunk, W - n0) if layer < depth else fm.OUT_PAD
+        k = k_in if layer == 0 else W
+        start = 0 if layer == 0 else W * k_in + (layer - 1) * W * W
+        at = slots[j % 2]
+        _place(mem, at, block[start + n0 * k:start + (n0 + rows) * k]
+               .reshape(rows, k), k)
+        src = act[layer & 1]
+        if layer == depth:
+            return _rows_of(_output(lambda ks: _a_step(mem, src, row0, ks, k),
+                                    mem, at, k))
+        acc = np.zeros((chunk // 8, 32, 4), np.float32)
+        for ks in range(k // 16):
+            a = _a_step(mem, src, row0, ks, k)
+            for nt in range(0, rows // 8, 2):
+                b = _b_pair(mem, at, nt, ks, k)
+                _mma(acc[nt], a, b[:, 0], b[:, 1])
+                _mma(acc[nt + 1], a, b[:, 2], b[:, 3])
+        h = _bf16(np.maximum(acc, 0.0))
+        dst = act[(layer + 1) & 1]
+        for nt in range(rows // 8):
+            for hh in range(2):
+                for lane in range(32):
+                    o = (dst + _offset(row0 + _G[lane] + 8 * hh,
+                                       n0 // 8 + nt, W) + 4 * _TQ[lane]) // 2
+                    mem[o:o + 2] = h[nt, lane, 2 * hh:2 * hh + 2]
+
+
+@pytest.mark.parametrize("design,width,in_dim,depth", [
+    ("resident", 16, 20, 2), ("resident", 24, 20, 1),
+    ("resident", 32, 80, 2), ("resident", 48, 48, 1),
+    ("resident", 64, 80, 2), ("resident", 80, 24, 1),
+    ("resident", 96, 256, 1), ("resident", 112, 40, 2),
+    ("resident", 128, 80, 2), ("stream", 144, 80, 2),
+    ("stream", 200, 256, 1), ("stream", 256, 24, 1),
+    ("stream", 128, 128, 8)])
+def test_k4_fragment_walk_computes_the_mlp(design, width, in_dim, depth):
+    """K4's walk at each templated width (and the STREAM design's chunks),
+    padding included: layer 0 from the feature tile one k-step at a time,
+    the weight rows where load_weights or the ring puts them, the output
+    layer's odd last k-step through ldmatrix.x2; the plain bf16 MLP within
+    1e-2 (a bf16 activation can flip by one ulp), most outputs within
+    1e-5."""
+    rs = np.random.RandomState(width + in_dim + depth)
+    dims = [in_dim] + [width] * depth + [3]
+    layers = [torch.from_numpy((rs.normal(size=(a, b)) / np.sqrt(a))
+                               .astype(np.float32))
+              for a, b in zip(dims[:-1], dims[1:])]
+    rows = 32 if design == "resident" and width <= 64 else 16
+    feats = rs.uniform(-1, 1, (rows, in_dim)).astype(np.float32)
+    walk = _k4_resident if design == "resident" else _k4_stream
+    got = walk(feats, layers)
+    want = mlp_apply({"layers": layers}, torch.from_numpy(feats)).numpy()
+    assert not got[:, 3:].any()
+    np.testing.assert_allclose(got[:, :3], want, rtol=1e-2, atol=1e-2)
+    assert (np.abs(got[:, :3] - want) <= 1e-5).mean() >= 0.9
+
+
 @pytest.mark.parametrize("case,what", [
     ("x5-f64", "x5 must be"), ("x5-4", "x5 must be"),
     ("table-shape", "packed_table must be"),
@@ -315,3 +515,7 @@ def test_check_refuses_what_the_kernel_does_not_take(case, what):
         layers[1] = torch.zeros((64, 64))
     with pytest.raises(ValueError, match=what):
         fem._check(table, layers, x5, spec, n_bins, out_dim)
+    # the cache's route test agrees: a shape K3 refuses goes to K4
+    shape_case = case in ("levels", "bins", "in-dim", "hidden", "out-dim",
+                          "too-few-inputs")
+    assert fem.takes(spec, n_bins, layers, out_dim) == (not shape_case)

@@ -229,22 +229,44 @@ def test_fused_mlp_rejects_bad_inputs(case):
         fm.fused_mlp_infer({"layers": layers}, feats, out_dim)
 
 
-@pytest.mark.parametrize("layers,in_dim,what", [
-    ([(16, 48), (48, 48), (48, 3)], 16, "hidden widths"),
-    ([(24, 64), (64, 3)], 24, "multiple of 16"),
-    ([(144, 64), (64, 3)], 144, "multiple of 16"),
-    ([(16, 64), (64, 9)], 16, "outputs"),
-    ([(128, 128)] + [(128, 128)] * 7 + [(128, 3)], 128, "shared memory"),
+@pytest.mark.parametrize("layers,in_dim,want", [
+    # shapes the kernel refused before its tensor-core redesign, now served
+    # (the plan: k_in, padded width, STREAM design)
+    pytest.param([(16, 48), (48, 48), (48, 3)], 16, (16, 48, False),
+                 id="layers0-16-hidden widths"),
+    pytest.param([(24, 64), (64, 3)], 24, (32, 64, False),
+                 id="layers1-24-multiple of 16"),
+    pytest.param([(144, 64), (64, 3)], 144, (144, 64, False),
+                 id="layers2-144-multiple of 16"),
+    pytest.param([(128, 128)] + [(128, 128)] * 7 + [(128, 3)], 128,
+                 (128, 128, True), id="layers4-128-shared memory"),
+    pytest.param([(80, 256)] + [(256, 256)] * 5 + [(256, 3)], 80,
+                 (80, 256, True), id="width-256"),
+    pytest.param([(256, 200), (200, 3)], 256, (256, 208, True),
+                 id="in-256-width-200"),
+    # and what it still refuses
+    pytest.param([(16, 64), (64, 9)], 16, "outputs", id="layers3-16-outputs"),
+    pytest.param([(16, 272), (272, 3)], 16, "up to 256", id="width-272"),
+    pytest.param([(264, 64), (64, 3)], 264, "up to 256", id="in-264"),
+    pytest.param([(16, 64), (64, 32), (32, 3)], 16, "one hidden width",
+                 id="mixed-widths"),
 ])
 def test_fused_mlp_kernel_refuses_shapes_it_does_not_take(layers, in_dim,
-                                                          what):
-    """Shapes the CUDA kernel does not take raise NotImplementedError on
-    the card; the wrapper never hands them to the plain version there."""
+                                                          want):
+    """K4's plan, made from the shapes before any launch: every in_dim and
+    hidden width up to 256 (padded to multiples of 16), any depth, the
+    STREAM design above width 128 or beyond one block's shared memory;
+    more than 8 outputs, wider layers and mixed hidden widths raise
+    NotImplementedError (the cache sends widths above 256 to mlp_apply,
+    as the JAX package's use_fused does)."""
     from nrc_hpm_tpu_torch.ops import fused_mlp as fm
 
     ws = [torch.zeros(a, b) for a, b in layers]
-    with pytest.raises(NotImplementedError, match=what):
-        fm._check_kernel(ws, torch.zeros(4, in_dim), 3)
+    if isinstance(want, str):
+        with pytest.raises(NotImplementedError, match=want):
+            fm.plan(ws, in_dim, layers[-1][1])
+    else:
+        assert fm.plan(ws, in_dim, layers[-1][1]) == want
 
 
 @pytest.mark.parametrize("fn,table,idx,what", [

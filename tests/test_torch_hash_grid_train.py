@@ -189,3 +189,132 @@ def test_power_of_two_mask_equals_modulo(config):
         assert mask == spec.table_size - 1, (lv, params)
         assert np.array_equal(hsh & np.uint64(mask), hsh % np.uint64(params))
     assert _hash_mask(1000) == 0 and _hash_mask(1 << 19) == (1 << 19) - 1
+
+
+# -- K7's forward: level-uniform warps, x-neighbour corners read as one
+# load where their rows pair, a block's features staged and stored as rows
+
+@pytest.mark.parametrize("kind", ["random", "clustered"])
+@pytest.mark.parametrize("route", ["packed", "float32"])
+def test_forward_pair_loads_read_the_corner_rows(route, kind):
+    """The forward's loads, mirrored: for corner c and its x-neighbour
+    c + 4, the aligned pair of rows that holds r0 (row r0 >> 1 of the table
+    seen as pairs) gives r0's value and, where the rows pair (r0 ^ r1 ==
+    1), r1's; otherwise r1 is read alone.  Both are bitwise the rows of
+    corner_index, pairs never straddle a level, and summed in corner order
+    they give the plain forward within K7_FWD_TOL."""
+    packed = route == "packed"
+    spec = tenc.HashGridSpec(**SPECS[route])
+    assert all(off % 8 == 0 for off in spec.level_offsets)
+    x, _ = _batch(kind, seed=3 if packed else 4)
+    idx, w = tenc._corner_indices(torch.from_numpy(x), spec)
+    rows, w = idx.numpy(), w.numpy()
+    table = np.random.RandomState(2).uniform(
+        -1, 1, (spec.total_params, 2)).astype(np.float32)
+    words = tenc.pack_table_bf16(torch.from_numpy(table)).numpy()
+    src = words if packed else table
+    pairs = src.reshape((spec.total_params // 2, 2) + src.shape[1:])
+    vals = np.zeros(rows.shape + src.shape[1:], src.dtype)
+    n_pairs = 0
+    for c in range(4):
+        r0, r1 = rows[..., c], rows[..., c + 4]
+        q = pairs[r0 >> 1]                       # one 8- or 16-byte load
+        odd = (r0 & 1).astype(bool)
+        pair = (r0 ^ r1) == 1
+        level = np.searchsorted(spec.level_offsets, r0, side="right")
+        assert np.array_equal(level[pair], np.searchsorted(
+            spec.level_offsets, r1, side="right")[pair])
+        if src.ndim > 1:                         # a float2 a row
+            odd, pair = odd[..., None], pair[..., None]
+        vals[:, :, c] = np.where(odd, q[:, :, 1], q[:, :, 0])
+        vals[:, :, c + 4] = np.where(pair, np.where(odd, q[:, :, 0],
+                                                    q[:, :, 1]), src[r1])
+        n_pairs += int(((r0 ^ r1) == 1).sum())
+    assert np.array_equal(vals, src[rows])
+    assert n_pairs >= 0.25 * rows[..., :4].size
+    if packed:
+        f = np.stack([(vals & np.int32(-65536)).view(np.float32),
+                      (vals << 16).view(np.float32)], axis=-1)
+    else:
+        f = vals
+    feats = np.zeros(rows.shape[:2] + (2,), np.float32)
+    for c in range(8):                           # corner order, as the kernel
+        feats = feats + f[:, :, c] * w[:, :, c, None]
+    want = hgt.hash_grid_train_fwd_plain(
+        torch.from_numpy(src), torch.from_numpy(x), spec, packed).numpy()
+    tol = chip_smoke.K7_FWD_TOL
+    assert (np.abs(feats.reshape(want.shape) - want)
+            <= tol["atol"] + tol["rtol"] * np.abs(want)).all()
+
+
+@pytest.mark.parametrize("n_levels", [1, 4, 16, 20, 33])
+@pytest.mark.parametrize("n", [1, 33, 100])
+def test_forward_blocks_store_every_feature_once(n_levels, n):
+    """The forward's grid: blocks of 32 samples, min(L, 16) warps, warp w
+    encoding levels w, w + warps, ...; each round staged and stored as the
+    samples' rows.  Every (sample, level) of the output is written once,
+    with its own feature."""
+    warps = min(n_levels, 16)
+    want = np.arange(n * n_levels).reshape(n, n_levels)
+    out = np.full(n * n_levels, -1)
+    writes = np.zeros(n * n_levels, int)
+    for b in range(-(-n // 32)):
+        s0 = 32 * b
+        ns = min(32, n - s0)
+        for l0 in range(0, n_levels, warps):
+            stage = np.full((32, 17), -1)
+            for warp in range(warps):
+                if l0 + warp < n_levels:
+                    for lane in range(32):
+                        s = lane if lane < ns else 0
+                        stage[lane, warp] = want[s0 + s, l0 + warp]
+            g = min(warps, n_levels - l0)
+            for i in range(ns * g):
+                si, k = divmod(i, g)
+                at = (s0 + si) * n_levels + l0 + k
+                out[at] = stage[si, k]
+                writes[at] += 1
+    assert (writes == 1).all()
+    assert np.array_equal(out.reshape(n, n_levels), want)
+
+
+@pytest.mark.parametrize("route", ["packed", "float32"])
+def test_twenty_levels_match_jax(route):
+    """A grid of 20 levels (past the 16 of K3's level arrays): the plain
+    forward and table gradient against the JAX encode and its VJP, as
+    test_grouped_backward_matches_plain_and_jax holds them; the level
+    records the kernels read hold every level's constants."""
+    packed = route == "packed"
+    kw = dict(SPECS[route], n_levels=20)
+    if packed:
+        kw["per_level_scale"] = 1.3
+    jspec, spec = jenc.HashGridSpec(**kw), tenc.HashGridSpec(**kw)
+    x, _ = _batch("random", seed=11)
+    g = np.random.RandomState(12).normal(size=(N, 40)).astype(np.float32)
+    table = np.random.RandomState(13).uniform(
+        -1, 1, (spec.total_params, 2)).astype(np.float32)
+    jfn = jenc.hash_grid_encode_train if packed else jenc.hash_grid_encode
+    jfeat, vjp = jax.vjp(lambda t: jfn(t, jnp.asarray(x), jspec),
+                         jnp.asarray(table))
+    src = tenc.pack_table_bf16(torch.from_numpy(table)) if packed \
+        else torch.from_numpy(table)
+    feat = hgt.hash_grid_train_fwd_plain(src, torch.from_numpy(x), spec,
+                                         packed).numpy()
+    np.testing.assert_allclose(feat, np.asarray(jfeat), rtol=1e-5, atol=2e-6)
+    got = hgt.hash_grid_train_bwd_plain(torch.from_numpy(x),
+                                        torch.from_numpy(g), spec,
+                                        packed).numpy()
+    s = _term_scale(x, g, spec, packed)
+    err = np.abs(got - np.asarray(vjp(jnp.asarray(g))[0]))
+    assert (err <= 1e-7 + 1e-5 * s).all(), f"max err vs JAX {err.max():.3e}"
+
+    rec = hgt.level_records(spec)
+    assert rec.shape == (20, hgt.LEVEL_WORDS) and rec.dtype == np.int32
+    for lv in range(20):
+        assert rec[lv, 0] == np.float32(spec.level_scale(lv)).view(np.int32)
+        assert tuple(rec[lv, 1:5]) == (
+            spec.level_resolution(lv), spec.level_is_dense(lv),
+            spec.level_params(lv), spec.level_offsets[lv])
+    # the wrappers' contract takes any level count
+    meta = torch.zeros((4, 3), device="meta")
+    hgt._check("hash_grid_train_fwd", meta, spec, {})
