@@ -36,7 +36,16 @@ float32 macrocell lookups on those rays (K6).  It checks that every kernel
 of each path ran in that path's loop (and that the kernels a path does not
 take did not), and checks small frames of each configuration and a small
 ``trace_fixed`` at ``coarse=16`` and ``64`` against the same runs through
-the plain versions on the CPU.  It prints the card's name and power limit, one line
+the plain versions on the CPU.  Then the Monte-Carlo path: three 1080p
+``McRenderer`` frames of 32 bounces on every pixel (K1/K2 and no other
+kernel) and one under torch.profiler; 48x27 MC frames in each tracking
+mode (``pw``, ``fast``, ``seq``) against the CPU; the port's own golden
+(``generate_golden`` at 192x108, 64 frames of 64-bounce MC, under the
+git-ignored ``nrc_hpm_tpu_torch/_build/golden/``), which a run resumed at
+half its frames must equal bitwise; then a 12-frame MC render scored
+against it (|relBias| < 0.06) and the online cache's NRC frames scored
+through ``compare_nrc`` (MSE, relBias, CV; not gated).  It prints the
+card's name and power limit, one line
 per kernel, the frame and path times, a JSON kernel summary, and as its
 last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -48,6 +57,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -984,14 +994,44 @@ def split_frame(torch, r, state, cam, gpu) -> None:
           f"inference, train rays, ring) {1e3 * rest:.1f} ms, on {gpu}")
 
 
-def profile_frame(torch, r, state, cam, gpu, frame_ms: float) -> None:
-    """torch.profiler over one online frame: each kernel's launches (the
-    wrappers' counts) and device ms in the frame, the device's busy share
-    (its device time over the profiled frame's host time, and over an
-    unprofiled frame's ``frame_ms``); then K3 timed on the frame's own
-    inference input, its scattered samples."""
+def profile_step(torch, label: str, step, frame_ms: float, gpu) -> None:
+    """torch.profiler over one call of ``step``: each kernel's launches
+    (the wrappers' counts) and device ms, the device's busy share (its
+    device time over the profiled call's host time, and over an
+    unprofiled one's ``frame_ms``) and the largest device operations."""
     from torch.profiler import ProfilerActivity, profile
 
+    zero_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_launches()
+    ops = device_rows(torch, prof)
+    busy = busy_ms(torch, prof)
+    print(f"profiled {label}: {wall_ms:.1f} ms under the profiler, "
+          f"{sum(c for _, _, c in ops)} device operations, "
+          f"{sum(t for _, t, _ in ops):.3f} ms of device time, busy "
+          f"{busy:.3f} ms: {busy / wall_ms:.4f} of the profiled frame, "
+          f"{busy / frame_ms:.4f} of an unprofiled one ({frame_ms:.1f} ms), "
+          f"on {gpu}")
+    for name, kernel in KERNEL_NAMES.items():
+        ms = sum(t for key, t, _ in ops if kernel in key)
+        calls = sum(c for key, _, c in ops if kernel in key)
+        print(f"profiled {label} {name}: {launches[name]} launches "
+              f"({calls} in the trace), {ms:.4f} ms of device time, "
+              f"{ms / max(busy, 1e-9):.4f} of the frame's")
+    top = sorted(ops, key=lambda o: -o[1])[:8]
+    print(f"profiled {label}, largest device operations: "
+          + "; ".join(f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in top))
+
+
+def profile_frame(torch, r, state, cam, gpu, frame_ms: float) -> None:
+    """``profile_step`` over one online frame; then K3 timed on the
+    frame's own inference input, its scattered samples."""
     from nrc_hpm_tpu_torch.models.nrc.encoding import pack_table_bf16
     from nrc_hpm_tpu_torch.ops import fused_encode_mlp as fem
 
@@ -1004,34 +1044,10 @@ def profile_frame(torch, r, state, cam, gpu, frame_ms: float) -> None:
 
     r.cache.infer = record
     try:
-        zero_launches()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            r.step(state, cam)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        launches = read_launches()
+        profile_step(torch, "online frame", lambda: r.step(state, cam),
+                     frame_ms, gpu)
     finally:
         del r.cache.infer
-    ops = device_rows(torch, prof)
-    busy = busy_ms(torch, prof)
-    print(f"profiled online frame: {wall_ms:.1f} ms under the profiler, "
-          f"{sum(c for _, _, c in ops)} device operations, "
-          f"{sum(t for _, t, _ in ops):.3f} ms of device time, busy "
-          f"{busy:.3f} ms: {busy / wall_ms:.4f} of the profiled frame, "
-          f"{busy / frame_ms:.4f} of an unprofiled one ({frame_ms:.1f} ms), "
-          f"on {gpu}")
-    for name, kernel in KERNEL_NAMES.items():
-        ms = sum(t for key, t, _ in ops if kernel in key)
-        calls = sum(c for key, _, c in ops if kernel in key)
-        print(f"profiled online frame {name}: {launches[name]} launches "
-              f"({calls} in the trace), {ms:.4f} ms of device time, "
-              f"{ms / max(busy, 1e-9):.4f} of the frame's")
-    top = sorted(ops, key=lambda o: -o[1])[:8]
-    print("profiled online frame, largest device operations: "
-          + "; ".join(f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in top))
     if len(seen) != 1:
         raise AssertionError(f"{len(seen)} inference calls in the frame")
     st, x5 = seen[0]
@@ -1349,6 +1365,217 @@ def coarse_phase(torch, dev, vol, cfg, gpu) -> dict:
                 small_table_lookup=lookup_launches["small_table_lookup"])
 
 
+# The MC path (McRenderer): K1/K2 and no other kernel, on every pixel
+MC_KERNELS = TRACK
+MC_FRAMES = 3                  # 1080p MC frames, 32 bounces
+SMALL_MC = (48, 27)            # the small MC frames of each tracking mode
+GOLDEN_SIZE = (192, 108)       # the repository's low.exr goldens' size
+GOLDEN_PATH = 64               # the reference's golden path length
+GOLDEN_FRAMES = 64
+MC_GATE_FRAMES = 12            # the JAX package's statistical MC test ...
+MC_GATE_REL_BIAS = 0.06        # ... and its gate
+GOLDEN_DIR = os.path.join(ROOT, "nrc_hpm_tpu_torch", "_build", "golden")
+
+
+def check_mc_image(torch, img, shape, env: float, label: str) -> float:
+    """A finite, non-negative MC image of ``shape`` whose corner pixel
+    misses the box (the constant env radiance ``env``, no scatter);
+    returns the scatter share (the did-scatter channel's mean), which must
+    lie in (0.05, 0.95)."""
+    if tuple(img.shape) != shape:
+        raise AssertionError(f"{label}: image shape {tuple(img.shape)}")
+    if not bool(torch.isfinite(img).all()) or bool((img[..., :3] < 0).any()):
+        raise AssertionError(f"{label}: non-finite or negative pixels")
+    corner = img[0, 0].tolist()
+    if any(abs(c - env) > 1e-5 for c in corner[:3]) or corner[3] != 0.0:
+        raise AssertionError(f"{label}: corner pixel {corner} is not the "
+                             f"env {env} without scatter")
+    share = float(img[..., 3].mean())
+    if not 0.05 < share < 0.95:
+        raise AssertionError(f"{label}: scatter share {share:.4f}")
+    return share
+
+
+def mc_phase(torch, dev, vol, cfg, gpu) -> None:
+    """``MC_FRAMES`` MC frames of ``McRenderer(cfg)`` at the configuration's
+    size and ``mc_path_length`` on every pixel (K1/K2 and no other kernel
+    launched in the loop), one more under torch.profiler (each kernel's
+    launches and device ms, the busy share), and K1/K2 against their plain
+    versions on the inputs of one more frame."""
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.renderer import McRenderer
+
+    r = McRenderer(cfg, vol)
+    cam = Camera.reference_camera(aspect=r.width / r.height, device=dev)
+    label = (f"MC {r.width}x{r.height} {r.path_length} bounces, "
+             f"{r.width * r.height} lanes")
+    state = r.init_state(seed=0)
+    zero_launches()
+    times = []
+    for _ in range(MC_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = r.step(state, cam)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check_launches(read_launches(), MC_KERNELS, label)
+    share = check_mc_image(torch, state.image, (r.height, r.width, 4),
+                           r.lights.env.strength, label)
+    ms = 1e3 * statistics.mean(times[1:])
+    print(f"{label}: {ms:.1f} ms/frame (frames 2-{MC_FRAMES}), first frame "
+          f"{1e3 * times[0]:.1f} ms, scatter share {share:.4f}, on {gpu}")
+
+    profile_step(torch, f"{label} frame", lambda: r.step(state, cam), ms,
+                 gpu)
+    mc_kernel_inputs_check(torch, r, state, cam)
+
+
+def mc_kernel_inputs_check(torch, r, state, cam) -> None:
+    """K1/K2 on the inputs a 1080p MC frame hands them: one more frame
+    records (a copy of) the first call of each instance, K2 with and
+    without the control draw and K1 with the delta and the ratio salt,
+    then each kernel runs against its plain version on those inputs under
+    PW_TOL."""
+    from nrc_hpm_tpu_torch import transmittance as tr
+    from nrc_hpm_tpu_torch.ops import pw_kernels as pk
+
+    seen = {}
+
+    def recorder(name, fn, instance):
+        def call(*args, **kwargs):
+            seen.setdefault((name, instance(kwargs)), (
+                tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    tr.pw_profile = recorder("pw_profile", pk.pw_profile,
+                             lambda kw: kw.get("want_ctrl", False))
+    tr.pw_events = recorder("pw_events", pk.pw_events, lambda kw: kw["salt"])
+    try:
+        r.step(state, cam)
+    finally:
+        tr.pw_profile, tr.pw_events = pk.pw_profile, pk.pw_events
+    for name, instance, label in (
+            ("pw_profile", True, "delta track's pw_profile want_ctrl=True"),
+            ("pw_profile", False, "ratio track's pw_profile"),
+            ("pw_events", pk.SALT_DELTA, "delta track's pw_events"),
+            ("pw_events", pk.SALT_RATIO, "ratio track's pw_events")):
+        if (name, instance) not in seen:
+            raise AssertionError(f"the MC frame made no {label} call")
+        args, kwargs = seen[(name, instance)]
+        compare(torch, f"MC frame's first {label}, {args[1].shape[0]} lanes "
+                f"{kwargs}", getattr(pk, name)(*args, **kwargs),
+                getattr(pk, name + "_plain")(*args, **kwargs), **PW_TOL)
+
+
+def small_mc_check(torch, dev) -> None:
+    """48x27 MC frames on the 8^3 test volume of the CPU tests, each
+    tracking mode, two frames from ``init_state(3)`` through the kernels
+    on the card against the plain run on the CPU: the did-scatter channel
+    equal on >= 99% of the pixels, the image within 1e-3 there, the keys
+    equal."""
+    import numpy as np
+
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.config import AppConfig
+    from nrc_hpm_tpu_torch.renderer import McRenderer
+    from nrc_hpm_tpu_torch.volume import Volume
+
+    w, h = SMALL_MC
+    cfg = AppConfig(render_width=w, render_height=h)
+    data = np.random.RandomState(42).rand(8, 8, 8).astype(np.float32)
+    for mode in ("pw", "fast", "seq"):
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            r = McRenderer(cfg, Volume.from_dense(data, 0.6, 0.8, device=d))
+            r.params = dataclasses.replace(r.params, mode=mode)
+            cam = Camera.reference_camera(aspect=w / h, device=d)
+            st = r.multi_step(r.init_state(3), cam, 2)
+            outs.append((st.image.cpu(), st.key))
+        (got, key), (want, key_cpu) = outs
+        agree = got[..., 3] == want[..., 3]
+        err = (got - want).abs().amax(-1)
+        share, worst = float(agree.float().mean()), float(err[agree].max())
+        print(f"small MC {w}x{h} mode={mode}, kernels vs plain on the CPU: "
+              f"did-scatter agrees on {share:.4f} (need >= 0.99), "
+              f"max_abs_err there {worst:.3e} (need <= 1e-3)")
+        if share < 0.99 or worst > 1e-3 or not torch.equal(key, key_cpu):
+            raise AssertionError(f"mode={mode}: the card's MC frame "
+                                 f"disagrees with the CPU's")
+
+
+def quality_phase(torch, dev, vol, gpu, nrc_renderer, nrc_state) -> None:
+    """The port's own golden: ``generate_golden`` on the procedural cloud
+    at ``GOLDEN_SIZE`` with ``GOLDEN_PATH`` bounces (written under the
+    git-ignored build directory), a run of half the frames resumed to all
+    of them (bitwise the single run), then scored: an
+    ``MC_GATE_FRAMES``-frame MC render with another seed (|relBias| <
+    ``MC_GATE_REL_BIAS``, the gate) and the online NRC renderer's trained
+    cache through ``compare_nrc`` at the golden's size (recorded, not
+    gated)."""
+    import shutil
+
+    from nrc_hpm_tpu_torch.config import AppConfig
+    from nrc_hpm_tpu_torch.reference import GoldenReference, generate_golden
+    from nrc_hpm_tpu_torch.renderer import McRenderer, NrcRenderer
+
+    w, h = GOLDEN_SIZE
+    cfg = AppConfig()
+    shutil.rmtree(GOLDEN_DIR, ignore_errors=True)
+    path = os.path.join(GOLDEN_DIR, str(cfg.scene.id), "0.exr")
+    zero_launches()
+    t0 = time.perf_counter()
+    img = generate_golden(cfg, path, vol, frames=GOLDEN_FRAMES,
+                          path_length=GOLDEN_PATH, width=w, height=h)
+    secs = time.perf_counter() - t0
+    check_launches(read_launches(), MC_KERNELS, "golden")
+    share = check_mc_image(torch, torch.from_numpy(img), (h, w, 4),
+                           cfg.scene.hdr_env_map_strength, "golden")
+    print(f"golden {w}x{h}: {GOLDEN_FRAMES} frames of {GOLDEN_PATH}-bounce "
+          f"MC in {secs:.1f} s ({1e3 * secs / GOLDEN_FRAMES:.1f} ms/frame), "
+          f"scatter share {share:.4f}, written to "
+          f"{os.path.relpath(path, ROOT)}, on {gpu}")
+
+    part = os.path.join(GOLDEN_DIR, "resumed", "0.exr")
+    generate_golden(cfg, part, vol, frames=GOLDEN_FRAMES // 2,
+                    path_length=GOLDEN_PATH, width=w, height=h)
+    resumed = generate_golden(cfg, part, vol, frames=GOLDEN_FRAMES,
+                              path_length=GOLDEN_PATH, width=w, height=h,
+                              resume=True)
+    with open(path + ".progress.json") as f, \
+            open(part + ".progress.json") as g:
+        same_meta = f.read() == g.read()
+    same = same_meta and resumed.tobytes() == img.tobytes()
+    print(f"golden resumed at {GOLDEN_FRAMES // 2} of {GOLDEN_FRAMES} "
+          f"frames: bitwise the single run {same}")
+    if not same:
+        raise AssertionError("the resumed golden differs from the single run")
+
+    golden = GoldenReference.load(cfg.scene.id, search_paths=(GOLDEN_DIR,),
+                                  device=dev)
+    mc = McRenderer(cfg, vol, width=w, height=h)
+    t0 = time.perf_counter()
+    res = golden.compare(mc.render(golden.camera, MC_GATE_FRAMES, seed=1))
+    secs = time.perf_counter() - t0
+    print(f"MC {w}x{h} {mc.path_length} bounces, {MC_GATE_FRAMES} frames "
+          f"(seed 1, {secs:.1f} s) vs the golden: MSE {res.mse:.6g} relBias "
+          f"{res.rel_bias:.6g} CV {res.cv:.6g} ({res.valid_pixel_count:.0f} "
+          f"pixels; gate |relBias| < {MC_GATE_REL_BIAS}), on {gpu}")
+    if not abs(res.rel_bias) < MC_GATE_REL_BIAS:
+        raise AssertionError(f"MC relBias {res.rel_bias} vs the golden")
+
+    small = NrcRenderer(nrc_renderer.cfg, vol, width=w, height=h)
+    res = golden.compare_nrc(small, small.init_state(0, nrc=nrc_state.nrc))
+    print(f"NRC frame {w}x{h}, cache after "
+          f"{nrc_state.nrc.step // small.cfg.train_batch_count} online "
+          f"frames, vs the golden: MSE {res.mse:.6g} relBias "
+          f"{res.rel_bias:.6g} CV {res.cv:.6g} (recorded, not gated), on "
+          f"{gpu}")
+    if not all(map(math.isfinite, (res.mse, res.rel_bias, res.cv))):
+        raise AssertionError(f"NRC frame {w}x{h}: non-finite scores")
+
+
 def main() -> int:
     import torch
 
@@ -1384,7 +1611,6 @@ def main() -> int:
         f"online {size} 2^{cfg.encoding.log2_hashmap_size}", ONLINE_KERNELS)
     split_frame(torch, r, state, cam, gpu)
     profile_frame(torch, r, state, cam, gpu, frame_ms)
-    del r, state
     tuned = AppConfig.tpu_tuned()
     online_phase(torch, dev, vol, tuned, gpu, 2,
                  f"online tpu_tuned 2^{tuned.encoding.log2_hashmap_size}",
@@ -1400,6 +1626,10 @@ def main() -> int:
     launches["fused_mlp"] = encodings_phase(torch, dev, vol, cfg,
                                             gpu)["fused_mlp"]
     launches.update(coarse_phase(torch, dev, vol, cfg, gpu))
+    mc_phase(torch, dev, vol, cfg, gpu)
+    small_mc_check(torch, dev)
+    quality_phase(torch, dev, vol, gpu, r, state)
+    del r, state
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}))

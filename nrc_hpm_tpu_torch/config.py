@@ -97,6 +97,9 @@ class AppConfig:
     # at 128) and on primary bounces
     max_track_steps: int = 128
     max_primary_bounces: int = 128
+    # MC ground-truth path length (the reference's main loop uses 32; its
+    # golden images use 64)
+    mc_path_length: int = 32
     # compute dtype of the MLP ("bfloat16" or "float32")
     mlp_dtype: str = "bfloat16"
     # bf16 packed-table forward for grids of <= 2^16 entries per level

@@ -1,30 +1,39 @@
 """Volumetric path tracing: direct lighting and the bounce loop.
 
-Port of ``nrc_hpm_tpu/integrator.py`` for the piecewise (``pw``) trackers.
-``trace_scene`` is single-scatter direct lighting from the directional
-light, the point light and one phase-weighted environment sample, with
-all shadow segments concatenated into ONE ratio-tracking call: segment k
-starts from the k-times-advanced RNG state, and the environment direction
-is drawn before tracking, exactly as the JAX package's batched path.
-With ``env_fixed16`` the environment sample's transmittance is the
-16-step fixed estimator instead, and only the other lights' segments are
-ratio-tracked.  ``coarse`` is the trackers' profile interval count.
+Port of ``nrc_hpm_tpu/integrator.py``.  ``TraceParams.mode`` picks the
+trackers (``transmittance``): ``pw`` (piecewise majorant, the default),
+``fast`` (segment-batched, global majorant) or ``seq`` (the reference
+shaders' control flow).  ``trace_scene`` is single-scatter direct lighting
+from the directional light, the point light and one phase-weighted
+environment sample.  In ``pw`` and ``fast`` mode all shadow segments are
+concatenated into ONE ratio-tracking call: segment k starts from the
+k-times-advanced RNG state, and the environment direction is drawn before
+tracking, exactly as the JAX package's batched path.  In ``seq`` mode the
+segments are tracked one after the other and the environment direction
+is drawn after the other lights' tracks, the reference's order.  With
+``env_fixed16`` the environment sample's transmittance is the 16-step
+fixed estimator instead, and only the other lights' segments are
+ratio-tracked.  ``coarse`` is the ``pw`` trackers' profile interval
+count.
 
 ``trace_path`` runs each bounce in two phases (delta tracking, then direct
 lighting and the new direction) on the lanes alive at that phase,
 compacted exactly, so live lanes see the same draws as in JAX.  Because
-ratio tracking's segment schedule depends on how many lanes the JAX
-package passes to the tracker (its compaction capacity, or the full batch
-below ``COMPACT_MIN_LANES`` and on overflow), each call is given that
-count as ``plan_lanes``.  Where the JAX package runs a phase on the full
-batch, every tracker call advances the RNG chain of dead lanes too (one
-step per call); the port advances them the same way, so the returned
-``state`` feeds a second ``trace_fixed`` pass exactly as in JAX.
+``pw`` ratio tracking's segment schedule depends on how many lanes the
+JAX package passes to the tracker (its compaction capacity, or the full
+batch below ``COMPACT_MIN_LANES`` and on overflow), each ``pw`` call is
+given that count as ``plan_lanes``.  Where the JAX package runs a phase
+on the full batch, every ``pw`` or ``fast`` tracker call advances the RNG
+chain of dead lanes too (one step per call, ``_track_seed``); the port
+advances them the same way, so the returned ``state`` feeds a second
+``trace_fixed`` pass exactly as in JAX.  ``seq`` trackers draw through
+masked uniforms, which leave dead lanes as they are.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -35,12 +44,19 @@ from .utils import rng
 from .volume import Volume, find_entry_exit
 
 
+MODES = ("pw", "fast", "seq")
+
+
 @dataclasses.dataclass(frozen=True)
 class TraceParams:
-    """Parameters of the piecewise (``pw``) tracking integrator."""
+    """Parameters of the tracking integrator."""
 
     flags: LightFlags
     max_track_steps: int = 128
+    # the trackers: "pw" piecewise majorant, "fast" segment-batched global
+    # majorant, "seq" the reference shaders' per-step loops
+    mode: str = "pw"
+    # events per segment of the pw and fast trackers
     segment: int = 8
     # coarse majorant intervals per track call: 32 runs kernels K1/K2,
     # other counts the per-interval profile (K5)
@@ -59,6 +75,42 @@ class TraceParams:
 
     def second_bounce_params(self) -> "TraceParams":
         return dataclasses.replace(self, scene_compact_frac=0.22)
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"tracking mode {self.mode!r} is not one of "
+                             f"{MODES}")
+
+    @property
+    def ratio_track(self):
+        """The mode's ratio tracker: (state, vol, start, end, max_steps)
+        -> (transmittance, state); ``pw`` also takes ``plan_lanes``."""
+        if self.mode == "pw":
+            return functools.partial(transmittance.ratio_track_pw,
+                                     segment=self.segment,
+                                     coarse=self.coarse)
+        if self.mode == "fast":
+            return functools.partial(transmittance.ratio_track_fast,
+                                     segment=self.segment)
+        return transmittance.ratio_track
+
+    @property
+    def delta_track(self):
+        """The mode's delta tracker: (state, vol, ro, rd, max_steps) ->
+        (pos, volume_exit, state); ``pw`` also takes ``plan_lanes``."""
+        if self.mode == "pw":
+            return functools.partial(transmittance.delta_track_pw,
+                                     segment=self.segment,
+                                     coarse=self.coarse)
+        if self.mode == "fast":
+            return functools.partial(transmittance.delta_track_fast,
+                                     segment=self.segment)
+        return transmittance.delta_track
+
+    def plan(self, lanes: int) -> dict:
+        """The tracker's schedule argument: ``pw`` segments follow the
+        JAX package's lane count, the other modes take none."""
+        return dict(plan_lanes=lanes) if self.mode == "pw" else {}
 
 
 def trace_scene(state, vol: Volume, lights: Lights, p: TraceParams, pos,
@@ -88,6 +140,10 @@ def trace_scene(state, vol: Volume, lights: Lights, p: TraceParams, pos,
         segs.append((lpos, pos, lambda tr, ph=phase, pl=pl:
                      pl.color * (pl.strength * tr * ph)[..., None]))
     if p.flags.env_on:
+        if p.mode == "seq":
+            # the reference's order: the other lights' tracks draw first
+            total, state = _track_each(state, vol, p, segs, total)
+            segs = []
         rand_dir, state = new_ray_dir(state, direction, vol.g,
                                       phase_sampling=False)
         phase = hg_phase(torch.sum(rand_dir * -direction, dim=-1), vol.g)
@@ -100,20 +156,29 @@ def trace_scene(state, vol: Volume, lights: Lights, p: TraceParams, pos,
         else:
             segs.append((pos, exit_pt, lambda tr, ph=phase, env=env:
                          env * (ph * tr)[..., None]))
-    if not segs:
-        return total, state
+    if p.mode == "seq" or not segs:
+        return _track_each(state, vol, p, segs, total)
 
     states = [state]
     for _ in range(len(segs) - 1):
         states.append(rng.uniform(states[-1])[1])
     k = len(segs)
-    trans, state_cat = transmittance.ratio_track_pw(
+    trans, state_cat = p.ratio_track(
         torch.cat(states), vol, torch.cat([s[0] for s in segs]),
-        torch.cat([s[1] for s in segs]), p.max_track_steps, p.segment,
-        plan_lanes=k * plan_lanes, coarse=p.coarse)
+        torch.cat([s[1] for s in segs]), p.max_track_steps,
+        **p.plan(k * plan_lanes))
     for j, (_, _, weight) in enumerate(segs):
         total = total + weight(trans[j * n:(j + 1) * n])
     return total, state_cat[(k - 1) * n:]
+
+
+def _track_each(state, vol: Volume, p: TraceParams, segs, total):
+    """Ratio-track the shadow segments one after the other (``seq``)."""
+    for start, end, weight in segs:
+        trans, state = p.ratio_track(state, vol, start, end,
+                                     p.max_track_steps)
+        total = total + weight(trans)
+    return total, state
 
 
 def _jax_lanes(n: int, frac: float, count: int) -> int:
@@ -154,6 +219,10 @@ def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
     unrolled = (primary_ray_length is not None and primary_ray_prob == 0.0
                 and n_bounces <= 2
                 and n >= transmittance.COMPACT_MIN_LANES)
+    # pw and fast trackers advance every lane's chain once per call
+    # (seq ones draw through masked uniforms): a full-batch phase of the
+    # JAX package advances its dead lanes so
+    chained = p.mode != "seq"
     # ratio-tracked shadow segments per scene phase (each advances the
     # chain once)
     n_segs = (int(p.flags.dir_on) + int(p.flags.point_on)
@@ -166,11 +235,11 @@ def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
             break
         # delta phase: find the next collision
         plan = _jax_lanes(n, p_b.bounce_compact_frac, idx.numel())
-        if plan == n:
+        if plan == n and chained:
             state = _advance_dead(state, alive, 1)
-        new_pt, exited, st = transmittance.delta_track_pw(
+        new_pt, exited, st = p_b.delta_track(
             state[idx], vol, point[idx], direction[idx], p_b.max_track_steps,
-            p_b.segment, plan_lanes=plan, coarse=p_b.coarse)
+            **p_b.plan(plan))
         point = point.index_put((idx,), new_pt)
         alive = alive.index_put((idx,), ~exited)
         state = state.index_put((idx,), st)
@@ -179,7 +248,7 @@ def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
         # scene phase: direct light at the collision, then a new direction
         idx = torch.nonzero(alive).squeeze(1)
         plan = _jax_lanes(n, p_b.scene_compact_frac, idx.numel())
-        if plan == n:
+        if plan == n and chained:
             state = _advance_dead(state, alive, n_segs)
         if idx.numel() == 0:
             break

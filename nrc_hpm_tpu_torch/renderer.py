@@ -1,13 +1,23 @@
-"""The NRC renderer's frame: online training, or a frozen cache.
+"""Frame renderers: the Monte-Carlo ground truth and the NRC renderer.
 
-Port of ``nrc_hpm_tpu/renderer.py`` (``NrcRenderer._step``): pixel rays
-and the RNG init, the 2-bounce primary trace with direct lighting, the
-5-float NRC queries, cache inference on the scattered pixels, composite
-and temporal blend; then, when training (the default), the train rays of
-a strided pixel grid (scattered pixels continue from their NRC query,
-the others pop a stored ray from the ring buffer), ``train_spp`` long
-``trace_fixed`` paths per ray, the clamped targets, the ring push and
+Port of ``nrc_hpm_tpu/renderer.py``.
+
+``McRenderer`` traces one ``path_length``-bounce path per pixel per frame
+(``trace_fixed`` from the camera, the pixels whose ray misses the box
+inactive; the env map where a pixel's path never scatters) and blends the frames into a running mean; the image's
+fourth channel is the frame's did-scatter flag.
+
+``NrcRenderer.step`` renders the NRC frame: pixel rays and the RNG init,
+the 2-bounce primary trace with direct lighting, the 5-float NRC queries,
+cache inference on the scattered pixels, composite and temporal blend;
+then, when training (the default), the train rays of a strided pixel
+grid (scattered pixels continue from their NRC query, the others pop a
+stored ray from the ring buffer), ``train_spp`` long ``trace_fixed``
+paths per ray, the clamped targets, the ring push and
 ``train_batch_count`` optimizer steps.
+
+Both take their volume as an argument: the port has no VDB loader yet,
+where the JAX renderers load the configuration's cloud when none is given.
 """
 
 from __future__ import annotations
@@ -28,6 +38,85 @@ from .ring_buffer import RingBuffer, ring_pop, ring_push, ring_wrap
 from .sampling import dir_to_spherical_norm
 from .utils import prng, rng
 from .volume import Volume, sky_uvw
+
+
+@dataclasses.dataclass
+class McState:
+    image: torch.Tensor          # (H, W, 4): rgb and the did-scatter mean
+    blend_index: int
+    key: torch.Tensor            # threefry key of the per-frame seeds
+
+
+class McRenderer:
+    """Pure Monte-Carlo renderer on ``vol.device``: per pixel one
+    ``path_length``-bounce delta-tracked path per frame, blended into a
+    running mean (``blend=False`` keeps only the latest frame)."""
+
+    def __init__(self, cfg: AppConfig, vol: Volume,
+                 lights: Optional[Lights] = None, width: Optional[int] = None,
+                 height: Optional[int] = None,
+                 path_length: Optional[int] = None, blend: bool = True):
+        self.cfg = cfg
+        self.width = width or cfg.render_width
+        self.height = height or cfg.render_height
+        self.path_length = path_length or cfg.mc_path_length
+        self.blend = blend
+        self.vol = vol
+        self.device = vol.device
+        self.lights = lights if lights is not None \
+            else lights_from_scene(cfg.scene, device=self.device)
+        self.params = TraceParams(flags=LightFlags.from_scene(cfg.scene),
+                                  max_track_steps=cfg.max_track_steps,
+                                  env_fixed16=cfg.env_fixed16)
+
+    def init_state(self, seed: int = 0) -> McState:
+        """A black image and the key ``PRNGKey(seed)``."""
+        return McState(
+            image=torch.zeros((self.height, self.width, 4),
+                              dtype=torch.float32, device=self.device),
+            blend_index=1, key=prng.prng_key(seed))
+
+    def step(self, state: McState, camera: Camera) -> McState:
+        """One frame, its seed drawn from a split of ``state.key``."""
+        H, W = self.height, self.width
+        n = H * W
+        vol, lights = self.vol, self.lights
+        key, sub = prng.split(state.key)
+        ro, rd, frag_uv = pixel_rays(camera, W, H)
+        rng_state = rng.init_state(frag_uv, rng.frame_random(sub)).reshape(n)
+
+        o, d = ro.expand(n, 3), rd.reshape(n, 3)
+        res = trace_fixed(rng_state, vol, lights, self.params, o, d,
+                          self.path_length,
+                          active=~primary_miss_mask(vol, o, d))
+        did_scatter = res["did_scatter"].reshape(H, W, 1)
+        rgb = torch.where(did_scatter, res["radiance"].reshape(H, W, 3),
+                          sample_env_map(lights.env, rd))
+        out = torch.cat([rgb, did_scatter.to(torch.float32)], dim=-1)
+        image, blend_index = _blend(state, out, self.blend)
+        return McState(image=image, blend_index=blend_index, key=key)
+
+    def multi_step(self, state: McState, camera: Camera, n: int) -> McState:
+        """``n`` accumulation steps."""
+        for _ in range(n):
+            state = self.step(state, camera)
+        return state
+
+    def render(self, camera: Camera, frames: int, seed: int = 0
+               ) -> torch.Tensor:
+        """Accumulate ``frames`` frames from ``init_state(seed)``; returns
+        the (H, W, 4) image."""
+        return self.multi_step(self.init_state(seed), camera, frames).image
+
+
+def _blend(state, out, blend: bool):
+    """(image, blend_index): the running mean with weight 1/blend_index,
+    or the new frame with the index kept."""
+    if not blend:
+        return out, state.blend_index
+    bf = np.float32(1.0) / np.float32(state.blend_index)
+    image = float(bf) * out + float(np.float32(1.0) - bf) * state.image
+    return image, state.blend_index + 1
 
 
 def primary_pass(rng_state, vol, lights, params: TraceParams,
@@ -79,13 +168,20 @@ class NrcRenderState:
 
 class NrcRenderer:
     """The neural-radiance-cache renderer on ``vol.device``; frames blend
-    into a running mean."""
+    into a running mean (``blend=False`` keeps only the latest frame).
+    ``width``/``height`` override the configuration's render size;
+    ``show_nrc=False`` leaves the cache's term out of the composite (and
+    skips the inference that would feed it)."""
 
     def __init__(self, cfg: AppConfig, vol: Volume,
-                 lights: Optional[Lights] = None):
+                 lights: Optional[Lights] = None,
+                 width: Optional[int] = None, height: Optional[int] = None,
+                 show_nrc: bool = True, blend: bool = True):
         self.cfg = cfg
-        self.width = cfg.render_width
-        self.height = cfg.render_height
+        self.width = width or cfg.render_width
+        self.height = height or cfg.render_height
+        self.show_nrc = show_nrc
+        self.blend = blend
         self.vol = vol
         self.device = vol.device
         self.lights = lights if lights is not None \
@@ -95,8 +191,11 @@ class NrcRenderer:
                                   env_fixed16=cfg.env_fixed16)
         self.primary_params = self.params.primary_params()
         self.cache = NeuralRadianceCache(cfg)
+        # the train grid of this renderer's size
         (self.train_w, self.train_h, self.train_x_dist,
-         self.train_y_dist) = cfg.train_subset()
+         self.train_y_dist) = dataclasses.replace(
+            cfg, render_width=self.width,
+            render_height=self.height).train_subset()
 
     def init_state(self, seed: int = 0, nrc: Optional[NrcState] = None
                    ) -> NrcRenderState:
@@ -128,30 +227,29 @@ class NrcRenderer:
             frame_random = rng.frame_random(sub)
         ro, rd, frag_uv = pixel_rays(camera, W, H)
         rng_state = rng.init_state(frag_uv, frame_random).reshape(n)
-        flat_rd = rd.reshape(n, 3)
-        flat_ro = ro.expand(n, 3)
         prim = primary_pass(rng_state, vol, self.lights, self.primary_params,
-                            self.cfg, flat_ro, flat_rd)
-
-        x5 = pack_nrc_inputs(vol, prim["nrc_pos"], prim["nrc_dir"])
-        nrc_rgb = infer_filtered(self.cache, state.nrc, x5,
-                                 prim["did_scatter"])
+                            self.cfg, ro.expand(n, 3), rd.reshape(n, 3))
 
         color = prim["primary_color"].reshape(H, W, 4)
-        use = prim["did_scatter"].reshape(H, W, 1)
-        add = torch.clamp(nrc_rgb.reshape(H, W, 3), min=0.0) * color[..., 3:]
-        out_rgb = color[..., :3] + torch.where(use, add, 0.0)
+        out_rgb = color[..., :3]
+        if self.show_nrc:
+            x5 = pack_nrc_inputs(vol, prim["nrc_pos"], prim["nrc_dir"])
+            nrc_rgb = infer_filtered(self.cache, state.nrc, x5,
+                                     prim["did_scatter"])
+            use = prim["did_scatter"].reshape(H, W, 1)
+            add = torch.clamp(nrc_rgb.reshape(H, W, 3),
+                              min=0.0) * color[..., 3:]
+            out_rgb = out_rgb + torch.where(use, add, 0.0)
         out = torch.cat([out_rgb, torch.ones_like(out_rgb[..., :1])], dim=-1)
-        bf = np.float32(1.0) / np.float32(state.blend_index)
-        image = float(bf) * out + float(np.float32(1.0) - bf) * state.image
+        image, blend_index = _blend(state, out, self.blend)
 
         ring = ring_wrap(state.ring)
         nrc = state.nrc
         if train:
             ring, nrc = self.train(state.nrc, ring, prim, frame_random)
         return dataclasses.replace(state, image=image,
-                                   blend_index=state.blend_index + 1,
-                                   ring=ring, nrc=nrc, key=key)
+                                   blend_index=blend_index, ring=ring,
+                                   nrc=nrc, key=key)
 
     def train_rays(self, ring: RingBuffer, prim: dict):
         """The train grid's rays: scattered pixels continue from their
@@ -215,7 +313,8 @@ class NrcRenderer:
         return ring, self.cache.train_frame(nrc, train_x5, target)
 
 
-def reset_accumulation(state: NrcRenderState) -> NrcRenderState:
-    """A camera change clears the temporal accumulation."""
+def reset_accumulation(state):
+    """A camera change clears the temporal accumulation (an ``McState``
+    or an ``NrcRenderState``)."""
     return dataclasses.replace(state, image=torch.zeros_like(state.image),
                                blend_index=1)

@@ -1,25 +1,39 @@
-"""Piecewise-majorant delta and ratio tracking, and the fixed-step
+"""Delta and ratio tracking in three modes, and the fixed-step
 transmittance.
 
-Port of the ``pw`` trackers of ``nrc_hpm_tpu/transmittance.py``.  At the
-default ``coarse = 32`` intervals they follow the kernel contract the JAX
-package uses on its kernel path: each track opens with ``pw_profile``
-(K2) and runs segments of ``pw_events`` (K1), with the fine-grid density
-gather and the ratio/delta fold in torch.  At any other ``coarse`` they
-follow its per-interval path: ``_coarse_profile`` builds the (C, N)
-majorant/control profile from the packed macro table (K5, through
-``volume.macro_profile_xyz``), and each segment draws its event depths
-and inverts them through ``_map_events``.
+Port of the trackers of ``nrc_hpm_tpu/transmittance.py``:
 
-Events are drawn statelessly, indexed by a global event counter, so a
-lane's values do not depend on which other lanes run with it: the port
-compacts the unresolved lanes exactly (``torch.nonzero``) before every
-segment instead of the JAX package's static capacities with dense
-fallbacks.  The segment LENGTHS do matter (ratio tracking's Russian
+- ``seq`` (``ratio_track`` / ``delta_track``): the reference shaders'
+  own control flow, majorant = ``density_factor``, up to ``max_steps``
+  iterations with masked per-lane draws from the RNG chain (a lane draws
+  exactly as often as its shader thread would, including the fallthrough
+  draw of a delta track that does not collide).
+- ``fast`` (``ratio_track_fast`` / ``delta_track_fast``): the same
+  estimators with segment-batched stateless draws (``_indexed_draws``
+  from one ``_track_seed`` per call) against the global majorant.
+- ``pw`` (``ratio_track_pw`` / ``delta_track_pw``): piecewise-majorant
+  tracking.  At the default ``coarse = 32`` intervals it follows the
+  kernel contract the JAX package uses on its kernel path: each track
+  opens with ``pw_profile`` (K2) and runs segments of ``pw_events`` (K1),
+  with the fine-grid density gather and the ratio/delta fold in torch.
+  At any other ``coarse`` it follows the per-interval path:
+  ``_coarse_profile`` builds the (C, N) majorant/control profile from the
+  packed macro table (K5, through ``volume.macro_profile_xyz``), and each
+  segment draws its event depths and inverts them through ``_map_events``.
+
+The ``seq`` and ``fast`` trackers are loops of torch operations; the JAX
+package runs them as XLA loops too (no Pallas kernel serves them).
+
+In ``pw`` mode events are drawn statelessly, indexed by a global event
+counter, so a lane's values do not depend on which other lanes run with
+it: the port compacts the unresolved lanes exactly (``torch.nonzero``)
+before every segment instead of the JAX package's static capacities with
+dense fallbacks.  The segment LENGTHS do matter (ratio tracking's Russian
 roulette draw is indexed by the segment's base event), so the port runs
-the JAX schedule: one ``segment`` length below ``COMPACT_MIN_LANES`` lanes,
-else ``RATIO_PLAN`` / ``DELTA_PLAN``.  ``plan_lanes`` names the lane count
-the JAX package would pass for the same call (see integrator.trace_path).
+the JAX schedule: one ``segment`` length below ``COMPACT_MIN_LANES``
+lanes, else ``RATIO_PLAN`` / ``DELTA_PLAN``.  ``plan_lanes`` names the
+lane count the JAX package would pass for the same call (see
+integrator.trace_path).
 """
 
 from __future__ import annotations
@@ -30,8 +44,8 @@ import torch
 from .ops.pw_kernels import (SALT_CTRL, SALT_DELTA, SALT_RATIO, pw_events,
                              pw_profile)
 from .utils import rng
-from .volume import (Volume, find_entry_exit, get_density_xyz,
-                     macro_profile_xyz)
+from .volume import (Volume, find_entry_exit, get_density,
+                     get_density_xyz, macro_profile_xyz)
 
 KERNEL_INTERVALS = 32     # the interval count K1/K2 are built for
 
@@ -93,6 +107,175 @@ def fixed_step_transmittance(vol: Volume, start, end, count: int):
     trans = torch.exp(-torch.sum(dens, dim=-1) * step)
     return torch.where(step == 0.0, 1.0, trans)
 
+
+def _inv_majorant(vol: Volume) -> float:
+    """1 / density_factor in float32, the seq and fast trackers' step
+    scale."""
+    return float(np.float32(1.0) / np.float32(vol.density_factor))
+
+
+# --- seq: the reference shaders' control flow ------------------------------
+
+def ratio_track(state, vol: Volume, start, end, max_steps: int = 128,
+                active=None):
+    """RatioTrack: residual-ratio transmittance along [start, end] with
+    the global majorant; each of up to ``max_steps`` iterations draws one
+    uniform on the lanes still tracking.  start/end (..., 3); returns
+    (transmittance, new_state)."""
+    if active is None:
+        active = torch.ones(state.shape, dtype=torch.bool,
+                            device=state.device)
+    inv_max = _inv_majorant(vol)
+    seg = end - start
+    tmax = torch.linalg.vector_norm(seg, dim=-1)
+    direction = seg / torch.clamp(tmax, min=1e-12)[..., None]
+    t = torch.zeros_like(tmax)
+    trans = torch.ones_like(tmax)
+    done = torch.zeros_like(active)
+    for _ in range(max_steps):
+        lane = active & ~done
+        if not bool(lane.any()):
+            break   # the remaining iterations change nothing
+        u, state = rng.masked_uniform(state, lane)
+        t_new = t - torch.log(1.0 - u) * inv_max
+        exited = t_new >= tmax
+        dens = get_density(vol, start + t_new[..., None] * direction)
+        trans = torch.where(lane & ~exited, trans * (1.0 - dens * inv_max),
+                            trans)
+        t = torch.where(lane, t_new, t)
+        done = done | (lane & exited)
+    return trans, state
+
+
+def delta_track(state, vol: Volume, ro, rd, max_steps: int = 128,
+                active=None):
+    """DeltaTrack: Woodcock collision sampling from ``ro`` along ``rd`` to
+    the box exit, two draws an iteration (free flight, then acceptance
+    where the flight stays inside).  Returns (pos, volume_exit,
+    new_state): collision lanes get the collision point; the others
+    draw once more and get a uniform point on [ro, exit) (the shader's
+    fallthrough), ``volume_exit`` only where a flight passed the exit."""
+    if active is None:
+        active = torch.ones(state.shape, dtype=torch.bool,
+                            device=state.device)
+    inv_max = _inv_majorant(vol)
+    _, exit_pt, _ = find_entry_exit(vol, ro, rd)
+    tmax = torch.linalg.vector_norm(exit_pt - ro, dim=-1)
+    t = torch.zeros_like(tmax)
+    pos = torch.zeros_like(ro)
+    hit = torch.zeros_like(active)
+    exited = torch.zeros_like(active)
+    for _ in range(max_steps):
+        lane = active & ~hit & ~exited
+        if not bool(lane.any()):
+            break
+        u1, state = rng.masked_uniform(state, lane)
+        t = torch.where(lane, t - torch.log(1.0 - u1) * inv_max, t)
+        exit_now = lane & (t >= tmax)
+        probe = lane & ~exit_now
+        u2, state = rng.masked_uniform(state, probe)
+        cand = ro + t[..., None] * rd
+        hit_now = probe & (get_density(vol, cand) * inv_max > u2)
+        pos = torch.where(hit_now[..., None], cand, pos)
+        hit = hit | hit_now
+        exited = exited | exit_now
+    u3, state = rng.masked_uniform(state, active & ~hit)
+    fallback = ro + (u3 * tmax)[..., None] * rd
+    return torch.where(hit[..., None], pos, fallback), exited, state
+
+
+# --- fast: segment-batched stateless draws, global majorant ----------------
+
+def _segment_schedule(max_steps: int, segment: int):
+    """(segment count, events per segment) of the fast trackers."""
+    count = max(1, (max_steps + segment - 1) // segment)
+    return count, segment if count > 1 else max_steps
+
+
+def _free_flights(seed, t_last, i: int, seg_len: int, salt: int,
+                  inv_max: float):
+    """The distances of segment ``i``'s events: t_last plus the running
+    sum of Exp(1) / majorant steps, (..., seg_len)."""
+    u = _indexed_draws(seed, i * seg_len, seg_len, salt)
+    steps = -torch.log1p(-u) * inv_max
+    return t_last[..., None] + torch.movedim(
+        _cumsum0(torch.movedim(steps, -1, 0)), 0, -1)
+
+
+def ratio_track_fast(state, vol: Volume, start, end, max_steps: int = 128,
+                     segment: int = 32, active=None):
+    """Segment-batched RatioTrack: ``segment`` events a pass, each lane's
+    draws indexed by (seed, event); the chain advances once per call on
+    every lane.  Inactive lanes transmit 1.  Returns (transmittance,
+    new_state)."""
+    inv_max = _inv_majorant(vol)
+    seg_count, seg_len = _segment_schedule(max_steps, segment)
+    seg_vec = end - start
+    tmax = torch.linalg.vector_norm(seg_vec, dim=-1)
+    direction = seg_vec / torch.clamp(tmax, min=1e-12)[..., None]
+    if active is not None:
+        tmax = torch.where(active, tmax, 0.0)
+    seed, state = _track_seed(state)
+    t_last = torch.zeros_like(tmax)
+    trans = torch.ones_like(tmax)
+    for i in range(seg_count):
+        if not bool((t_last < tmax).any()):
+            break   # every lane has left its segment
+        t = _free_flights(seed, t_last, i, seg_len, SALT_RATIO, inv_max)
+        dens = get_density(vol, start[..., None, :]
+                           + t[..., None] * direction[..., None, :])
+        factors = torch.where(t < tmax[..., None], 1.0 - dens * inv_max,
+                              1.0)
+        trans = trans * torch.prod(factors, dim=-1)
+        t_last = t[..., -1]
+    return trans, state
+
+
+def delta_track_fast(state, vol: Volume, ro, rd, max_steps: int = 128,
+                     segment: int = 32, active=None):
+    """Segment-batched DeltaTrack: a pass draws ``segment`` free flights
+    and acceptances; a lane resolves at its first accepted or exiting
+    event.  Same contract as ``delta_track`` (inactive lanes resolve at
+    once as exits at ``ro``); the chain advances once per call on every
+    lane."""
+    inv_max = _inv_majorant(vol)
+    _, exit_pt, _ = find_entry_exit(vol, ro, rd)
+    tmax = torch.linalg.vector_norm(exit_pt - ro, dim=-1)
+    if active is not None:
+        tmax = torch.where(active, tmax, 0.0)
+    seg_count, seg_len = _segment_schedule(max_steps, segment)
+    seed, state = _track_seed(state)
+    t_last = torch.zeros_like(tmax)
+    t_hit = torch.zeros_like(tmax)
+    resolved = torch.zeros(tmax.shape, dtype=torch.bool, device=tmax.device)
+    hit = torch.zeros_like(resolved)
+    exited = torch.zeros_like(resolved)
+    for i in range(seg_count):
+        if bool(resolved.all()):
+            break
+        t = _free_flights(seed, t_last, i, seg_len, SALT_DELTA, inv_max)
+        u2 = _indexed_draws(seed, i * seg_len, seg_len, SALT_ACCEPT)
+        dens = get_density(vol, ro[..., None, :] + t[..., None]
+                           * rd[..., None, :])
+        cross = t >= tmax[..., None]
+        accept = (dens * inv_max > u2) & ~cross
+        event = accept | cross
+        first = event & (torch.cumsum(event.to(torch.int32), dim=-1) == 1)
+        has_event = event.any(dim=-1)
+        ev_accept = (first & accept).any(dim=-1)
+        ev_t = torch.where(first, t, 0.0).sum(dim=-1)
+        new = ~resolved & has_event
+        hit = hit | (new & ev_accept)
+        exited = exited | (new & ~ev_accept)
+        t_hit = torch.where(new & ev_accept, ev_t, t_hit)
+        resolved = resolved | has_event
+        t_last = t[..., -1]
+    u3 = _indexed_draws(seed, 0, 1, SALT_FALLBACK)[..., 0]
+    t_final = torch.where(hit, t_hit, u3 * tmax)
+    return ro + t_final[..., None] * rd, exited, state
+
+
+# --- pw: piecewise majorant --------------------------------------------------
 
 def _fine_density(vol: Volume, lin):
     """density_factor/255 * grid[lin], 0 where lin = -1."""

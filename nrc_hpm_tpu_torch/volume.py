@@ -80,6 +80,14 @@ class Volume:
             density_factor=float(np.float32(density_factor)),
             g=float(np.float32(g)))
 
+    @staticmethod
+    def homogeneous_cube(n: int, value: float, density_factor: float,
+                         g: float, device="cuda") -> "Volume":
+        """An n^3 cube of constant density ``value`` (the reference's
+        homogeneous test configuration)."""
+        return Volume.from_dense(np.full((n, n, n), value, np.float32),
+                                 density_factor, g, device=device)
+
     def to(self, device) -> "Volume":
         return dataclasses.replace(
             self, grid=self.grid.to(device), macro=self.macro.to(device),
@@ -108,6 +116,12 @@ def get_density_xyz(vol: Volume, px, py, pz) -> torch.Tensor:
     raw = vol.grid.reshape(-1)[ix * (Y * Z) + iy * Z + iz]
     val = raw.to(torch.float32) * (1.0 / 255.0)
     return torch.where(inside, val, 0.0) * vol.density_factor
+
+
+def get_density(vol: Volume, pos: torch.Tensor) -> torch.Tensor:
+    """get_density_xyz on (..., 3) world positions: nearest sample, the
+    u8 value scaled by 1/255, black outside the box (clamp to border)."""
+    return get_density_xyz(vol, *pos.unbind(-1))
 
 
 def _macro_index(vol: Volume, cx, cy, cz) -> torch.Tensor:

@@ -63,8 +63,10 @@ def test_kernel_ab_refuses_without_gpu(tmp_path):
 def _entry_points():
     from nrc_hpm_tpu_torch import camera, lights, ring_buffer, weights
     from nrc_hpm_tpu_torch.models.nrc.cache import NeuralRadianceCache
+    from nrc_hpm_tpu_torch.reference import GoldenReference
 
-    return [Volume.from_dense, camera.Camera.create,
+    return [Volume.from_dense, Volume.homogeneous_cube,
+            GoldenReference, GoldenReference.load, camera.Camera.create,
             camera.Camera.reference_camera, lights.DirLight.create,
             lights.PointLight.create, lights.HdrEnvMap.constant_white,
             lights.HdrEnvMap.from_image, lights.lights_from_scene,
