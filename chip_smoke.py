@@ -44,7 +44,14 @@ mode (``pw``, ``fast``, ``seq``) against the CPU; the port's own golden
 git-ignored ``nrc_hpm_tpu_torch/_build/golden/``), which a run resumed at
 half its frames must equal bitwise; then a 12-frame MC render scored
 against it (|relBias| < 0.06) and the online cache's NRC frames scored
-through ``compare_nrc`` (MSE, relBias, CV; not gated).  It prints the
+through ``compare_nrc`` (MSE, relBias, CV; not gated).  Last, the app as
+a user starts it: the procedural cloud written as a VDB (read back
+bitwise) at the scene's path in a scratch working directory beside that
+golden, ``app.main`` at ``AppConfig()`` and 1920x1080 with ``--renderer
+both``, four frames, the golden compared every other frame, the stage
+profile, EXRs and a checkpoint (the online frame's kernels and no
+other), then a frozen run from the checkpoint, which must load it
+bitwise.  It prints the
 card's name and power limit, one line
 per kernel, the frame and path times, a JSON kernel summary, and as its
 last line
@@ -1576,6 +1583,134 @@ def quality_phase(torch, dev, vol, gpu, nrc_renderer, nrc_state) -> None:
         raise AssertionError(f"NRC frame {w}x{h}: non-finite scores")
 
 
+APP_DIR = os.path.join(ROOT, "nrc_hpm_tpu_torch", "_build", "app_run")
+APP_FRAMES = 4                 # the app's --renderer both run ...
+APP_RELOAD_FRAMES = 2          # ... and the frozen run from its checkpoint
+# the keys of the JAX package's profile_nrc_frame
+STAGE_KEYS = ("clear", "gen_rays", "prep_infer", "filter", "nn_infer",
+              "prep_train", "nn_train", "nn", "render", "stage_sum",
+              "total", "theoretical_fps")
+
+
+def app_phase(torch, gpu, extra=()) -> None:
+    """The port's app as a user starts it, on the procedural cloud written
+    as the WDAS file is (VDB version 223, zip with the active mask) at the
+    scene's relative volume_path under the git-ignored ``APP_DIR``, with
+    the quality phase's golden at ``reference/4/0.exr`` there: one
+    ``app.main`` at ``AppConfig()`` and 1920x1080, NRC online and MC, the
+    golden compared every other frame, the stage profile, the EXRs and
+    the checkpoint; then a frozen NRC run from that checkpoint, which
+    saves the state it loaded.  Checks the VDB read back bitwise, rc 0,
+    every frame's finite loss, finite EXRs, every stage key, the reloaded
+    state bitwise the saved one, and that the first run launched the
+    online frame's kernels and no other.  ``extra`` goes before each
+    run's arguments (a rehearsal on the CPU passes ``--platform cpu``, a
+    small size and the reference's positional arguments)."""
+    import shutil
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_vdb_writer as vw
+    from nrc_hpm_tpu_torch import app
+    from nrc_hpm_tpu_torch.profiler import format_stage_report
+    from nrc_hpm_tpu_torch.utils.exr import read_exr_rgba
+    from nrc_hpm_tpu_torch.utils.procedural import cloud_density
+    from nrc_hpm_tpu_torch.utils.vdb import load_vdb
+
+    t_phase = time.perf_counter()
+    extra = list(extra)
+    cfg = app._config(app.build_argparser().parse_args(extra))
+    shutil.rmtree(APP_DIR, ignore_errors=True)
+    vdb = os.path.join(APP_DIR, cfg.scene.volume_path)
+    os.makedirs(os.path.dirname(vdb))
+    data = cloud_density(seed=0)
+    t0 = time.perf_counter()
+    vw.write_vdb(vdb, [vw.Grid(data)], version=223,
+                 compression=vw.COMPRESS_ZIP | vw.COMPRESS_ACTIVE_MASK)
+    back = load_vdb(vdb).data
+    secs = time.perf_counter() - t0
+    if back.shape != data.shape or back.tobytes() != data.tobytes():
+        raise AssertionError("the written VDB does not read back bitwise")
+    print(f"app scene: the procedural cloud {data.shape} (the WDAS cloud "
+          f"is absent), written to {cfg.scene.volume_path} as VDB v223 zip "
+          f"+ active mask ({os.path.getsize(vdb)} bytes), read back "
+          f"bitwise; {secs:.1f} s")
+    golden = os.path.join(APP_DIR, "reference", str(cfg.scene.id), "0.exr")
+    os.makedirs(os.path.dirname(golden))
+    shutil.copy(os.path.join(GOLDEN_DIR, str(cfg.scene.id), "0.exr"),
+                golden)
+
+    ck, ck2 = "cache.npz", "reloaded.npz"
+    cwd = os.getcwd()
+    os.chdir(APP_DIR)
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        rc = app.main(extra + [
+            "--renderer", "both", "--frames", str(APP_FRAMES),
+            "--benchmark-every", "2", "--profile", "--export-exr",
+            "--checkpoint", ck, "--out", "run"])
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        zero_launches()
+        rc2 = app.main(extra + [
+            "--load-checkpoint", ck, "--no-train", "--renderer", "nrc",
+            "--frames", str(APP_RELOAD_FRAMES), "--checkpoint", ck2,
+            "--out", "reload"])
+        reload_launches = read_launches()
+    finally:
+        os.chdir(cwd)
+    label = f"app {cfg.render_width}x{cfg.render_height} --renderer both"
+    if rc != 0 or rc2 != 0:
+        raise AssertionError(f"app.main returned {rc}, then {rc2}")
+    check_launches(launches, ONLINE_KERNELS, label)
+    check_launches(reload_launches, FROZEN_KERNELS, "app frozen reload")
+
+    def records(run):
+        with open(os.path.join(APP_DIR, run, "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    recs = records("run")
+    frames = [r for r in recs if "frame" in r]
+    reload = [r for r in records("reload") if "frame" in r]
+    (stages,) = [{k: v for k, v in r.items() if k not in ("event", "t")}
+                 for r in recs if r.get("event") == "stage_profile"]
+    if (len(frames) != APP_FRAMES or len(reload) != APP_RELOAD_FRAMES
+            or not all(math.isfinite(r["loss"]) for r in frames + reload)):
+        raise AssertionError(f"{label}: frame records {frames} {reload}")
+    if sorted(stages) != sorted(STAGE_KEYS):
+        raise AssertionError(f"{label}: stage keys {sorted(stages)}")
+    if [r["loss"] for r in reload] != [frames[-1]["loss"]] * len(reload):
+        raise AssertionError("the reloaded frozen frames lost the loss")
+    for name in ("nrc.exr", "mc.exr"):
+        img = read_exr_rgba(os.path.join(APP_DIR, "run", name))
+        if img.shape != (cfg.render_height, cfg.render_width, 4) or \
+                not np.isfinite(img).all():
+            raise AssertionError(f"{label}: {name} {img.shape} not finite")
+    with np.load(os.path.join(APP_DIR, ck)) as a, \
+            np.load(os.path.join(APP_DIR, ck2)) as b:
+        same = sorted(a.files) == sorted(b.files) and all(
+            a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+            for k in a.files)
+        n_leaves = len(a.files) - 1
+    if not same:
+        raise AssertionError("the state the reload saved differs from the "
+                             "checkpoint it loaded")
+    times = [r["frame_time_ms"] for r in frames]
+    frozen = [r["frame_time_ms"] for r in reload]
+    scores = [(r["frame"], r["nrc"]["rel_bias"], r["mc"]["rel_bias"])
+              for r in frames if "nrc" in r]
+    print(format_stage_report(stages))
+    print(f"{label}: {APP_FRAMES} frames (online NRC + {cfg.mc_path_length}"
+          f"-bounce MC) of {times} ms, mean of frames 2-{APP_FRAMES} "
+          f"{statistics.mean(times[1:]):.1f} ms; frozen reload {frozen} ms; "
+          f"relBias vs the golden (frame, NRC, MC) {scores}; checkpoint of "
+          f"{n_leaves} leaves reloaded bitwise; the first run "
+          f"{secs:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s; "
+          f"on {gpu}")
+
+
 def main() -> int:
     import torch
 
@@ -1630,6 +1765,7 @@ def main() -> int:
     small_mc_check(torch, dev)
     quality_phase(torch, dev, vol, gpu, r, state)
     del r, state
+    app_phase(torch, gpu)
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}))

@@ -1,8 +1,10 @@
 """Pinhole camera with glm-compatible matrices.
 
 Port of ``nrc_hpm_tpu/camera.py``: glm::perspective (right-handed, [-1, 1]
-clip depth) and glm::lookAt built in numpy, and per-pixel unprojection
-``rd = normalize(invProjView @ (uv*2-1, 0, 1) - pos)``.
+clip depth) and glm::lookAt built in numpy, per-pixel unprojection
+``rd = normalize(invProjView @ (uv*2-1, 0, 1) - pos)``, and the
+interactive controller's moves (``camera_move``, ``camera_rotate``,
+``camera_rotate_around_origin``) on numpy position and view direction.
 """
 
 from __future__ import annotations
@@ -89,3 +91,53 @@ def rays_for_uv(cam: Camera, frag_uv: torch.Tensor) -> torch.Tensor:
     rd = world[..., :3] / world[..., 3:4] - cam.pos
     norm = torch.linalg.vector_norm(rd, dim=-1, keepdim=True)
     return rd / torch.clamp(norm, min=1e-20)
+
+
+def _rotation(axis, angle) -> np.ndarray:
+    """Rodrigues' rotation by ``angle`` about ``axis`` (float32)."""
+    axis = axis / max(np.linalg.norm(axis), 1e-12)
+    c, s = np.cos(angle), np.sin(angle)
+    K = np.array([[0, -axis[2], axis[1]],
+                  [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]], np.float32)
+    return np.eye(3, dtype=np.float32) + s * K + (1 - c) * (K @ K)
+
+
+def camera_move(cam: Camera, pos, view_dir, move, up=(0.0, 1.0, 0.0)):
+    """WASD-style move: ``move`` = (side, up, front) deltas in the camera
+    frame, Y locked to world up.  Returns the new Camera (on ``cam``'s
+    device) and the updated (pos, view_dir)."""
+    pos = np.asarray(pos, np.float32)
+    view_dir = np.asarray(view_dir, np.float32)
+    up = np.asarray(up, np.float32)
+    front = view_dir * np.array([1.0, 0.0, 1.0], np.float32)
+    front = front / max(np.linalg.norm(front), 1e-12)
+    side = np.cross(view_dir, up)
+    side = side / max(np.linalg.norm(side), 1e-12)
+    new_pos = pos + front * move[2] + side * move[0] \
+        + np.array([0.0, move[1], 0.0], np.float32)
+    return (Camera.create(new_pos, view_dir, up, device=cam.pos.device),
+            (new_pos, view_dir))
+
+
+def camera_rotate(cam: Camera, pos, view_dir, phi, theta,
+                  up=(0.0, 1.0, 0.0)):
+    """Mouse-look: yaw ``phi`` about world up, then pitch ``theta`` about
+    the side axis."""
+    pos = np.asarray(pos, np.float32)
+    v = np.asarray(view_dir, np.float32)
+    up = np.asarray(up, np.float32)
+    v = _rotation(up, phi) @ v
+    v = _rotation(np.cross(v, up), theta) @ v
+    v = v / np.linalg.norm(v)
+    return Camera.create(pos, v, up, device=cam.pos.device), (pos, v)
+
+
+def camera_rotate_around_origin(cam: Camera, pos, axis, angle,
+                                up=(0.0, 1.0, 0.0)):
+    """Orbit the origin by ``angle`` about ``axis`` and look back at it."""
+    pos = np.asarray(pos, np.float32)
+    new_pos = _rotation(np.asarray(axis, np.float32), angle) @ pos
+    view = -new_pos / max(np.linalg.norm(new_pos), 1e-12)
+    return (Camera.create(new_pos, view, up, device=cam.pos.device),
+            (new_pos, view))

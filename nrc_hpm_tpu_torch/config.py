@@ -39,13 +39,19 @@ class EncodingConfig:
 @dataclasses.dataclass(frozen=True)
 class SceneConfig:
     """A scene preset.  Every preset's environment map is constant white,
-    so env radiance equals ``hdr_env_map_strength``."""
+    so env radiance equals ``hdr_env_map_strength``; ``hdr_env_map_path``
+    names a real equirect map (.exr or Radiance .hdr) instead.
+    ``dynamic`` animates the dir light (``lights.update_scene``); the
+    cloud is read from ``volume_path`` (``renderer._volume_from_config``)."""
 
     id: int = 4
     dir_light_strength: float = 8.0
     point_light_strength: float = 0.0
+    hdr_env_map_path: str = ""
     hdr_env_map_strength: float = 0.1
     density: float = 0.6
+    dynamic: bool = False
+    volume_path: str = "data/volume/wdas_cloud_sixteenth.vdb"
     volume_g: float = 0.8
 
     @staticmethod

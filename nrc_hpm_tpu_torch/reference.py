@@ -166,14 +166,15 @@ def _downsample(img: np.ndarray, hw) -> np.ndarray:
     return out
 
 
-def generate_golden(cfg, out_path: str, vol, frames: int = 8192,
+def generate_golden(cfg, out_path: str, vol=None, frames: int = 8192,
                     path_length: int = 64, width=None, height=None,
                     seed: int = 0, progress_every: int = 0,
-                    resume: bool = False, save_every: int = 0
-                    ) -> np.ndarray:
+                    resume: bool = False, save_every: int = 0,
+                    device="cuda") -> np.ndarray:
     """Accumulate ``frames`` frames of ``path_length``-bounce MC on ``vol``
-    at the fixed reference camera and write the running mean to
-    ``out_path`` (EXR) with its sidecar; returns the (H, W, 4) image.
+    (without one, the configuration's cloud on ``device``) at the fixed
+    reference camera and write the running mean to ``out_path`` (EXR)
+    with its sidecar; returns the (H, W, 4) image.
 
     ``resume`` continues from ``out_path`` and its sidecar when their
     seed, path length and size match: the stored image is the exact
@@ -183,7 +184,8 @@ def generate_golden(cfg, out_path: str, vol, frames: int = 8192,
     cfg = dataclasses.replace(
         cfg, render_width=width or cfg.render_width,
         render_height=height or cfg.render_height)
-    r = McRenderer(cfg, vol, path_length=path_length, blend=True)
+    r = McRenderer(cfg, vol, path_length=path_length, blend=True,
+                   device=device)
     cam = Camera.reference_camera(
         aspect=cfg.render_width / cfg.render_height, device=r.device)
     state = r.init_state(seed)

@@ -16,8 +16,8 @@ stored ray from the ring buffer), ``train_spp`` long ``trace_fixed``
 paths per ray, the clamped targets, the ring push and
 ``train_batch_count`` optimizer steps.
 
-Both take their volume as an argument: the port has no VDB loader yet,
-where the JAX renderers load the configuration's cloud when none is given.
+Without a ``vol`` both load the configuration's cloud
+(``_volume_from_config``) onto ``device``.
 """
 
 from __future__ import annotations
@@ -40,6 +40,15 @@ from .utils import prng, rng
 from .volume import Volume, sky_uvw
 
 
+def _volume_from_config(cfg: AppConfig, device="cuda") -> Volume:
+    """The cloud of ``cfg.scene``: ``volume_path`` as given, a relative
+    path read from the working directory.  The JAX package also tries the
+    upstream checkout; the port reads nothing outside the working
+    directory."""
+    return Volume.from_vdb(cfg.scene.volume_path, cfg.scene.density,
+                           cfg.scene.volume_g, device=device)
+
+
 @dataclasses.dataclass
 class McState:
     image: torch.Tensor          # (H, W, 4): rgb and the did-scatter mean
@@ -50,19 +59,22 @@ class McState:
 class McRenderer:
     """Pure Monte-Carlo renderer on ``vol.device``: per pixel one
     ``path_length``-bounce delta-tracked path per frame, blended into a
-    running mean (``blend=False`` keeps only the latest frame)."""
+    running mean (``blend=False`` keeps only the latest frame).  Without
+    ``vol`` it loads the configuration's cloud onto ``device``."""
 
-    def __init__(self, cfg: AppConfig, vol: Volume,
+    def __init__(self, cfg: AppConfig, vol: Optional[Volume] = None,
                  lights: Optional[Lights] = None, width: Optional[int] = None,
                  height: Optional[int] = None,
-                 path_length: Optional[int] = None, blend: bool = True):
+                 path_length: Optional[int] = None, blend: bool = True,
+                 device="cuda"):
         self.cfg = cfg
         self.width = width or cfg.render_width
         self.height = height or cfg.render_height
         self.path_length = path_length or cfg.mc_path_length
         self.blend = blend
-        self.vol = vol
-        self.device = vol.device
+        self.vol = vol if vol is not None \
+            else _volume_from_config(cfg, device)
+        self.device = self.vol.device
         self.lights = lights if lights is not None \
             else lights_from_scene(cfg.scene, device=self.device)
         self.params = TraceParams(flags=LightFlags.from_scene(cfg.scene),
@@ -171,19 +183,21 @@ class NrcRenderer:
     into a running mean (``blend=False`` keeps only the latest frame).
     ``width``/``height`` override the configuration's render size;
     ``show_nrc=False`` leaves the cache's term out of the composite (and
-    skips the inference that would feed it)."""
+    skips the inference that would feed it).  Without ``vol`` it loads the
+    configuration's cloud onto ``device``."""
 
-    def __init__(self, cfg: AppConfig, vol: Volume,
+    def __init__(self, cfg: AppConfig, vol: Optional[Volume] = None,
                  lights: Optional[Lights] = None,
                  width: Optional[int] = None, height: Optional[int] = None,
-                 show_nrc: bool = True, blend: bool = True):
+                 show_nrc: bool = True, blend: bool = True, device="cuda"):
         self.cfg = cfg
         self.width = width or cfg.render_width
         self.height = height or cfg.render_height
         self.show_nrc = show_nrc
         self.blend = blend
-        self.vol = vol
-        self.device = vol.device
+        self.vol = vol if vol is not None \
+            else _volume_from_config(cfg, device)
+        self.device = self.vol.device
         self.lights = lights if lights is not None \
             else lights_from_scene(cfg.scene, device=self.device)
         self.params = TraceParams(flags=LightFlags.from_scene(cfg.scene),
@@ -230,18 +244,12 @@ class NrcRenderer:
         prim = primary_pass(rng_state, vol, self.lights, self.primary_params,
                             self.cfg, ro.expand(n, 3), rd.reshape(n, 3))
 
-        color = prim["primary_color"].reshape(H, W, 4)
-        out_rgb = color[..., :3]
+        nrc_rgb = None
         if self.show_nrc:
             x5 = pack_nrc_inputs(vol, prim["nrc_pos"], prim["nrc_dir"])
             nrc_rgb = infer_filtered(self.cache, state.nrc, x5,
                                      prim["did_scatter"])
-            use = prim["did_scatter"].reshape(H, W, 1)
-            add = torch.clamp(nrc_rgb.reshape(H, W, 3),
-                              min=0.0) * color[..., 3:]
-            out_rgb = out_rgb + torch.where(use, add, 0.0)
-        out = torch.cat([out_rgb, torch.ones_like(out_rgb[..., :1])], dim=-1)
-        image, blend_index = _blend(state, out, self.blend)
+        image, blend_index = self.composite(state, prim, nrc_rgb)
 
         ring = ring_wrap(state.ring)
         nrc = state.nrc
@@ -250,6 +258,21 @@ class NrcRenderer:
         return dataclasses.replace(state, image=image,
                                    blend_index=blend_index, ring=ring,
                                    nrc=nrc, key=key)
+
+    def composite(self, state: NrcRenderState, prim: dict, nrc_rgb):
+        """The primary color plus, on scattered pixels, the clamped cache
+        prediction ``nrc_rgb`` (None: left out) times the throughput,
+        blended into ``state.image``.  Returns (image, blend_index)."""
+        H, W = self.height, self.width
+        color = prim["primary_color"].reshape(H, W, 4)
+        out_rgb = color[..., :3]
+        if nrc_rgb is not None:
+            use = prim["did_scatter"].reshape(H, W, 1)
+            add = torch.clamp(nrc_rgb.reshape(H, W, 3),
+                              min=0.0) * color[..., 3:]
+            out_rgb = out_rgb + torch.where(use, add, 0.0)
+        out = torch.cat([out_rgb, torch.ones_like(out_rgb[..., :1])], dim=-1)
+        return _blend(state, out, self.blend)
 
     def train_rays(self, ring: RingBuffer, prim: dict):
         """The train grid's rays: scattered pixels continue from their
@@ -302,14 +325,21 @@ class NrcRenderer:
         target = target * (1.0 / cfg.train_spp)
         return torch.clamp(target, max=cfg.train_target_clamp)
 
-    def train(self, nrc: NrcState, ring: RingBuffer, prim: dict,
-              frame_random) -> tuple:
-        """Train rays, targets, the ring push and the frame's optimizer
-        steps.  Returns (ring, nrc)."""
+    def train_set(self, nrc: NrcState, ring: RingBuffer, prim: dict,
+                  frame_random) -> tuple:
+        """Train rays, their targets and the ring push.  Returns (ring,
+        train_x5, target)."""
         scat, t_ro, t_rd, ring = self.train_rays(ring, prim)
         target = self.train_targets(nrc, t_ro, t_rd, frame_random)
         ring = ring_push(ring, scat, torch.cat([t_ro, t_rd], dim=-1))
-        train_x5 = pack_nrc_inputs(self.vol, t_ro, t_rd)
+        return ring, pack_nrc_inputs(self.vol, t_ro, t_rd), target
+
+    def train(self, nrc: NrcState, ring: RingBuffer, prim: dict,
+              frame_random) -> tuple:
+        """The train set and the frame's optimizer steps.  Returns (ring,
+        nrc)."""
+        ring, train_x5, target = self.train_set(nrc, ring, prim,
+                                                frame_random)
         return ring, self.cache.train_frame(nrc, train_x5, target)
 
 

@@ -81,6 +81,14 @@ class Volume:
             g=float(np.float32(g)))
 
     @staticmethod
+    def from_vdb(path: str, density_factor: float, g: float,
+                 device="cuda") -> "Volume":
+        """The first float grid of a .vdb file (``utils/vdb.load_vdb``)."""
+        from .utils.vdb import load_vdb
+        return Volume.from_dense(load_vdb(path).data, density_factor, g,
+                                 device=device)
+
+    @staticmethod
     def homogeneous_cube(n: int, value: float, density_factor: float,
                          g: float, device="cuda") -> "Volume":
         """An n^3 cube of constant density ``value`` (the reference's

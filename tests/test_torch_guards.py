@@ -33,11 +33,24 @@ def _run(args, cwd, env_extra):
 def test_port_imports_no_jax():
     code = ("import sys, nrc_hpm_tpu_torch.renderer, "
             "nrc_hpm_tpu_torch.weights, nrc_hpm_tpu_torch.utils.procedural, "
-            "nrc_hpm_tpu_torch.ops.hash_grid_train\n"
+            "nrc_hpm_tpu_torch.ops.hash_grid_train, nrc_hpm_tpu_torch.app, "
+            "nrc_hpm_tpu_torch.profiler, nrc_hpm_tpu_torch.camera_path, "
+            "nrc_hpm_tpu_torch.utils.vdb, nrc_hpm_tpu_torch.utils.metrics, "
+            "nrc_hpm_tpu_torch.utils.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'nrc_hpm_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     res = _run(["-c", code], ROOT, {"PYTHONPATH": ROOT})
+    assert res.returncode == 0, res.stdout + res.stderr
+    # the test VDB writer, which chip_smoke.py imports on the card's
+    # machine: no JAX and no torch
+    code = ("import sys, torch_vdb_writer\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'nrc_hpm_tpu', 'nrc_hpm_tpu_torch', "
+            "'torch')]\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = _run(["-c", code], ROOT,
+               {"PYTHONPATH": os.path.join(ROOT, "tests")})
     assert res.returncode == 0, res.stdout + res.stderr
 
 
@@ -61,9 +74,11 @@ def test_kernel_ab_refuses_without_gpu(tmp_path):
 
 
 def _entry_points():
-    from nrc_hpm_tpu_torch import camera, lights, ring_buffer, weights
+    from nrc_hpm_tpu_torch import (camera, camera_path, lights, renderer,
+                                   ring_buffer, weights)
     from nrc_hpm_tpu_torch.models.nrc.cache import NeuralRadianceCache
-    from nrc_hpm_tpu_torch.reference import GoldenReference
+    from nrc_hpm_tpu_torch.reference import GoldenReference, generate_golden
+    from nrc_hpm_tpu_torch.utils import checkpoint
 
     return [Volume.from_dense, Volume.homogeneous_cube,
             GoldenReference, GoldenReference.load, camera.Camera.create,
@@ -72,7 +87,11 @@ def _entry_points():
             lights.HdrEnvMap.from_image, lights.lights_from_scene,
             ring_buffer.RingBuffer.create, NeuralRadianceCache.init_state,
             NeuralRadianceCache.state_from_params, weights.params_from_jax,
-            weights.state_from_jax, weights.ring_from_jax]
+            weights.state_from_jax, weights.ring_from_jax,
+            Volume.from_vdb, renderer._volume_from_config,
+            checkpoint.load_pytree, renderer.NrcRenderer,
+            renderer.McRenderer, generate_golden,
+            camera_path.CameraPath.player]
 
 
 @pytest.mark.parametrize("fn", _entry_points(),
@@ -81,6 +100,36 @@ def test_entry_points_default_to_the_card(fn):
     """A caller who names no device gets the GPU (or an error where there
     is none), never a silent CPU run."""
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_app_runs_on_the_card_by_default():
+    """The app's --platform defaults to cuda: no silent CPU run."""
+    from nrc_hpm_tpu_torch import app
+
+    assert app.build_argparser().get_default("platform") == "cuda"
+
+
+def test_app_writes_apart_and_keeps_earlier_logs(tmp_path, monkeypatch,
+                                                 capsys):
+    """The app's runs go to output_torch/<name>/, not the JAX app's
+    output/<name>/, and a run whose scene fails to load leaves the logs
+    already there as they were."""
+    from nrc_hpm_tpu_torch import app
+    from nrc_hpm_tpu_torch.config import AppConfig
+
+    monkeypatch.chdir(tmp_path)
+    name = AppConfig().name()
+    logs = [tmp_path / root / name / f for root in ("output", "output_torch")
+            for f in ("log.txt", "metrics.jsonl")]
+    for f in logs:
+        f.parent.mkdir(parents=True, exist_ok=True)
+        f.write_text("an earlier run\n")
+    with pytest.raises(FileNotFoundError):
+        app.main(["--platform", "cpu", "--frames", "1", "--width", "8",
+                  "--height", "4"])
+    assert f"output: {os.path.join('output_torch', name)}" in \
+        capsys.readouterr().out
+    assert all(f.read_text() == "an earlier run\n" for f in logs)
 
 
 def _lanes(n=64):
