@@ -36,10 +36,19 @@ float32 macrocell lookups on those rays (K6).  It checks that every kernel
 of each path ran in that path's loop (and that the kernels a path does not
 take did not), and checks small frames of each configuration and a small
 ``trace_fixed`` at ``coarse=16`` and ``64`` against the same runs through
-the plain versions on the CPU.  Then the Monte-Carlo path: three 1080p
+the plain versions on the CPU.  Then the frame options at 1080p: a
+frozen NRC frame at ``compact=True`` and at ``trace_chunks=4`` and an MC
+frame at ``trace_chunks=4``, each against the default frame from the
+same seed.  Then the Monte-Carlo path: three 1080p
 ``McRenderer`` frames of 32 bounces on every pixel (K1/K2 and no other
 kernel) and one under torch.profiler; 48x27 MC frames in each tracking
-mode (``pw``, ``fast``, ``seq``) against the CPU; the port's own golden
+mode (``pw``, ``fast``, ``seq``) against the CPU; the ReSTIR path: four
+1080p ``RestirRenderer(AppConfig())`` frames (K1/K2 in the shading pass's
+shadow tracks and no other kernel, the peak memory), one under
+torch.profiler, one more frame's first K1/K2 calls against the plain
+versions, 48x27 ReSTIR frames against the CPU; the triangle-model
+renderer on a textured cube it writes as OBJ + MTL + PNGs (1080p timed,
+192x108 against the CPU); the port's own golden
 (``generate_golden`` at 192x108, 64 frames of 64-bounce MC, under the
 git-ignored ``nrc_hpm_tpu_torch/_build/golden/``), which a run resumed at
 half its frames must equal bitwise; then a 12-frame MC render scored
@@ -51,7 +60,8 @@ golden, ``app.main`` at ``AppConfig()`` and 1920x1080 with ``--renderer
 both``, four frames, the golden compared every other frame, the stage
 profile, EXRs and a checkpoint (the online frame's kernels and no
 other), then a frozen run from the checkpoint, which must load it
-bitwise.  It prints the
+bitwise, then ``--renderer restir`` for three 1080p frames with
+``--export-exr`` (K1/K2 only, a finite ``restir.exr``).  It prints the
 card's name and power limit, one line
 per kernel, the frame and path times, a JSON kernel summary, and as its
 last line
@@ -1438,11 +1448,24 @@ def mc_phase(torch, dev, vol, cfg, gpu) -> None:
 
 
 def mc_kernel_inputs_check(torch, r, state, cam) -> None:
-    """K1/K2 on the inputs a 1080p MC frame hands them: one more frame
-    records (a copy of) the first call of each instance, K2 with and
-    without the control draw and K1 with the delta and the ratio salt,
-    then each kernel runs against its plain version on those inputs under
-    PW_TOL."""
+    """K1/K2 on the inputs a 1080p MC frame hands them: the first call of
+    each instance, K2 with and without the control draw and K1 with the
+    delta and the ratio salt (``kernel_inputs_check``)."""
+    from nrc_hpm_tpu_torch.ops import pw_kernels as pk
+
+    kernel_inputs_check(torch, "MC frame", lambda: r.step(state, cam), (
+        ("pw_profile", True, "delta track's pw_profile want_ctrl=True"),
+        ("pw_profile", False, "ratio track's pw_profile"),
+        ("pw_events", pk.SALT_DELTA, "delta track's pw_events"),
+        ("pw_events", pk.SALT_RATIO, "ratio track's pw_events")))
+
+
+def kernel_inputs_check(torch, label: str, step, instances) -> None:
+    """K1/K2 on the inputs a frame hands them: ``step()`` records (a copy
+    of) the first call of each instance, K2 by its control draw and K1 by
+    its salt, by wrapping ``transmittance.pw_profile``/``pw_events``;
+    then each instance of ``instances`` ((wrapper, instance, what)) runs
+    against its plain version on those inputs under PW_TOL."""
     from nrc_hpm_tpu_torch import transmittance as tr
     from nrc_hpm_tpu_torch.ops import pw_kernels as pk
 
@@ -1460,18 +1483,14 @@ def mc_kernel_inputs_check(torch, r, state, cam) -> None:
                              lambda kw: kw.get("want_ctrl", False))
     tr.pw_events = recorder("pw_events", pk.pw_events, lambda kw: kw["salt"])
     try:
-        r.step(state, cam)
+        step()
     finally:
         tr.pw_profile, tr.pw_events = pk.pw_profile, pk.pw_events
-    for name, instance, label in (
-            ("pw_profile", True, "delta track's pw_profile want_ctrl=True"),
-            ("pw_profile", False, "ratio track's pw_profile"),
-            ("pw_events", pk.SALT_DELTA, "delta track's pw_events"),
-            ("pw_events", pk.SALT_RATIO, "ratio track's pw_events")):
+    for name, instance, what in instances:
         if (name, instance) not in seen:
-            raise AssertionError(f"the MC frame made no {label} call")
+            raise AssertionError(f"the {label} made no {what} call")
         args, kwargs = seen[(name, instance)]
-        compare(torch, f"MC frame's first {label}, {args[1].shape[0]} lanes "
+        compare(torch, f"{label}'s first {what}, {args[1].shape[0]} lanes "
                 f"{kwargs}", getattr(pk, name)(*args, **kwargs),
                 getattr(pk, name + "_plain")(*args, **kwargs), **PW_TOL)
 
@@ -1711,6 +1730,363 @@ def app_phase(torch, gpu, extra=()) -> None:
           f"on {gpu}")
 
 
+# The ReSTIR path: K1/K2 (the shadow ratio tracks of its shading pass)
+# and no other kernel
+RESTIR_KERNELS = TRACK
+RESTIR_FRAMES = 4              # 1080p ReSTIR frames, frames 2-4 timed
+SMALL_RESTIR = (48, 27)        # the small ReSTIR frames, card against CPU
+SMALL_RESTIR_FRAMES = 4
+APP_RESTIR_FRAMES = 3
+# the tests' ReSTIR frame rule (tests/test_torch_restir.py): the stats of
+# >= 99% of the pixels equal, the reservoir of >= 99% of the pixels within
+# 1e-4 + 1e-4|ref|, the image within 1e-3 + 1e-3|ref| where the stats
+# agree (a pixel's radiance reaches ~60: the HG phase at g = 0.8 and the
+# RIS weight multiply it)
+RESTIR_SHARE = 0.99
+# the options' frame rule (tests/test_torch_frame_options.py): did-scatter
+# equal on >= 99% of the pixels, the image within 1e-3 there
+OPTION_SHARE = 0.99
+OPTION_CHUNKS = 4
+MODEL_DIR = os.path.join(ROOT, "nrc_hpm_tpu_torch", "_build", "model")
+SMALL_MODEL = (192, 108)
+# the model renderer's image card against CPU: the hit mask equal, depth
+# within 1e-5 relative and rgb within 1e-4 on the hit pixels.  A texel
+# lookup turns an ulp of the barycentrics (summed in another order on the
+# card) into up to ~64 x 6e-8 of rgb per ulp on the 64-texel face, whose
+# neighbouring texels differ by up to 1: 1.1e-5 read on the card
+MODEL_DEPTH_RTOL = 1e-5
+MODEL_RGB_TOL = 1e-4
+
+
+def check_restir_image(torch, img, shape, env: float, label: str) -> float:
+    """A finite ReSTIR image of ``shape`` whose corner pixels are the env
+    colour with transmittance 1 (their rays miss the box); returns the
+    shaded share (transmittance below 1), which must lie in (0.05, 0.95),
+    and requires light on >= 90% of the shaded pixels."""
+    if tuple(img.shape) != shape or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: image {tuple(img.shape)} not finite")
+    want = [env, env, env, 1.0]
+    h, w = shape[:2]
+    for y, x in ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1)):
+        if any(abs(a - b) > 1e-6 for a, b in zip(img[y, x].tolist(), want)):
+            raise AssertionError(f"{label}: pixel ({y}, {x}) "
+                                 f"{img[y, x].tolist()} is not the env")
+    shaded = img[..., 3] < 1.0
+    share = float(shaded.float().mean())
+    lit = float((img[..., :3][shaded].sum(-1) > 0).float().mean()) \
+        if share > 0 else 0.0
+    if not 0.05 < share < 0.95 or lit < 0.9:
+        raise AssertionError(f"{label}: shaded share {share:.4f}, lit "
+                             f"{lit:.4f}")
+    return share
+
+
+def restir_phase(torch, dev, vol, gpu) -> None:
+    """``RestirRenderer(AppConfig())`` at 1920x1080 on the procedural cloud
+    (8 vertices, 3x3 spatial, 2 temporal slots, MIS): RESTIR_FRAMES frames
+    on the host clock around synchronized steps (K1/K2 and no other
+    kernel launched in the loop), the peak memory, one frame under
+    torch.profiler (launches per kernel, device ms, the busy share), then
+    K1/K2 against their plain versions on one more frame's first calls."""
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.config import AppConfig
+    from nrc_hpm_tpu_torch.models.restir import RestirRenderer
+    from nrc_hpm_tpu_torch.ops import pw_kernels as pk
+
+    cfg = AppConfig()
+    r = RestirRenderer(cfg, vol)
+    cam = Camera.reference_camera(aspect=r.width / r.height, device=dev)
+    label = (f"ReSTIR {r.width}x{r.height} V={r.n_vertices} "
+             f"{r.spatial_kernel}x{r.spatial_kernel} T={r.temporal_kernel} "
+             f"mis={r.mis_weights}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = r.init_state(0)
+    zero_launches()
+    times = []
+    for _ in range(RESTIR_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = r.step(state, cam)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check_launches(read_launches(), RESTIR_KERNELS, label)
+    share = check_restir_image(torch, state.image, (r.height, r.width, 4),
+                               cfg.scene.hdr_env_map_strength, label)
+    ms = 1e3 * statistics.mean(times[1:])
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print(f"{label}: {ms:.1f} ms/frame (frames 2-{RESTIR_FRAMES}: "
+          f"{[round(1e3 * t, 1) for t in times[1:]]}), first frame "
+          f"{1e3 * times[0]:.1f} ms, shaded share {share:.4f}, peak "
+          f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held before, "
+          f"on {gpu}")
+    profile_step(torch, f"{label} frame", lambda: r.step(state, cam), ms,
+                 gpu)
+    kernel_inputs_check(torch, "ReSTIR frame", lambda: r.step(state, cam), (
+        ("pw_profile", False, "shading pass's pw_profile"),
+        ("pw_events", pk.SALT_RATIO, "shading pass's pw_events")))
+
+
+def small_restir_check(torch, dev) -> None:
+    """48x27 ReSTIR frames of ``AppConfig()``'s ReSTIR on the 8^3 test
+    volume of the CPU tests, SMALL_RESTIR_FRAMES frames from
+    ``init_state(0)`` through the kernels on the card against the plain
+    run on the CPU, held to the tests' ReSTIR frame rule every frame."""
+    import numpy as np
+
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.config import AppConfig
+    from nrc_hpm_tpu_torch.models.restir import RestirRenderer
+    from nrc_hpm_tpu_torch.volume import Volume
+
+    w, h = SMALL_RESTIR
+    cfg = AppConfig(render_width=w, render_height=h)
+    data = np.random.RandomState(42).rand(8, 8, 8).astype(np.float32)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        r = RestirRenderer(cfg, Volume.from_dense(data, 0.6, 0.8, device=d))
+        cam = Camera.reference_camera(aspect=w / h, device=d)
+        st, seq = r.init_state(0), []
+        for _ in range(SMALL_RESTIR_FRAMES):
+            st = r.step(st, cam)
+            seq.append(st)
+        runs.append(seq)
+    for i, (got, want) in enumerate(zip(*runs)):
+        stats = (got.stats.cpu() == want.stats).all(-1)
+        res_ok = ((got.reservoir.cpu() - want.reservoir).abs()
+                  <= 1e-4 + 1e-4 * want.reservoir.abs()).flatten(2).all(-1)
+        img_ok = ((got.image.cpu() - want.image).abs()
+                  <= 1e-3 + 1e-3 * want.image.abs()).all(-1)
+        s_share, r_share = float(stats.float().mean()), \
+            float(res_ok.float().mean())
+        img_bad = int((~img_ok & stats).sum())
+        worst = float((got.image.cpu() - want.image).abs().amax(-1)[
+            stats].max())
+        print(f"small ReSTIR {w}x{h} frame {i}, kernels vs plain on the "
+              f"CPU: stats agree on {s_share:.4f}, reservoir on "
+              f"{r_share:.4f} (need >= {RESTIR_SHARE}), image max_abs_err "
+              f"{worst:.3e} where the stats agree, {img_bad} pixels beyond "
+              f"1e-3 + 1e-3|ref| (need 0)")
+        if (s_share < RESTIR_SHARE or r_share < RESTIR_SHARE or img_bad
+                or not torch.equal(got.key, want.key)
+                or not torch.equal(got.pixel_info.cpu(), want.pixel_info)
+                or got.frame != want.frame):
+            raise AssertionError(f"small ReSTIR frame {i}: the card's "
+                                 f"frame disagrees with the CPU's")
+    check_restir_image(torch, runs[0][-1].image, (h, w, 4), 0.1,
+                       "small ReSTIR")
+
+
+def app_restir_phase(torch, gpu, extra=()) -> None:
+    """``app.main --renderer restir`` as a user starts it, from the app
+    phase's working directory (the written cloud): APP_RESTIR_FRAMES
+    frames at AppConfig() and 1920x1080 with ``--export-exr``; rc 0, the
+    path's kernels and no other, the frame records, a finite
+    ``restir.exr``."""
+    import numpy as np
+
+    from nrc_hpm_tpu_torch import app
+    from nrc_hpm_tpu_torch.utils.exr import read_exr_rgba
+
+    cfg = app._config(app.build_argparser().parse_args(list(extra)))
+    cwd = os.getcwd()
+    os.chdir(APP_DIR)
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        rc = app.main(list(extra) + [
+            "--renderer", "restir", "--frames", str(APP_RESTIR_FRAMES),
+            "--export-exr", "--out", "restir"])
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        os.chdir(cwd)
+    label = f"app {cfg.render_width}x{cfg.render_height} --renderer restir"
+    if rc != 0:
+        raise AssertionError(f"{label}: app.main returned {rc}")
+    check_launches(launches, RESTIR_KERNELS, label)
+    with open(os.path.join(APP_DIR, "restir", "metrics.jsonl")) as f:
+        frames = [r for r in map(json.loads, f) if "frame" in r]
+    if [r["frame"] for r in frames] != list(range(APP_RESTIR_FRAMES)):
+        raise AssertionError(f"{label}: frame records {frames}")
+    img = read_exr_rgba(os.path.join(APP_DIR, "restir", "restir.exr"))
+    finite = img.shape == (cfg.render_height, cfg.render_width, 4) and \
+        bool(np.isfinite(img).all())
+    times = [r["frame_time_ms"] for r in frames]
+    print(f"{label}: {APP_RESTIR_FRAMES} frames of {times} ms, mean of "
+          f"frames 2-{APP_RESTIR_FRAMES} {statistics.mean(times[1:]):.1f} "
+          f"ms; launches {launches}; restir.exr {img.shape} finite "
+          f"{finite}; the run {secs:.1f} s; on {gpu}")
+    if not finite:
+        raise AssertionError(f"{label}: restir.exr {img.shape} not finite")
+
+
+def write_model(root: str) -> str:
+    """A textured cube as OBJ + MTL + two PNG textures of different sizes
+    (64x64 on the +x/-x faces, 32x48 on the others) and an untextured
+    quad behind it.  Returns the OBJ's path."""
+    import numpy as np
+
+    from nrc_hpm_tpu_torch.models.mesh import make_cube
+    from nrc_hpm_tpu_torch.utils.png import write_png
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(5)
+    for name, (h, w) in (("a.png", (64, 64)), ("b.png", (32, 48))):
+        write_png(os.path.join(root, name),
+                  rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+    with open(os.path.join(root, "m.mtl"), "w") as f:
+        f.write("newmtl a\nKd 1.0 0.8 0.6\nmap_Kd a.png\n"
+                "newmtl b\nKd 0.5 0.9 1.0\nmap_Kd b.png\n"
+                "newmtl c\nKd 0.3 0.6 0.2\n")
+    cube = make_cube(1.6).meshes[0]
+    lines = ["mtllib m.mtl"]
+    lines += [f"v {x} {y} {z}" for x, y, z in cube.positions]
+    lines += [f"vt {u} {v}" for u, v in cube.uvs]
+    lines += [f"vn {x} {y} {z}" for x, y, z in cube.normals]
+    for q in range(6):
+        c = [4 * q + k + 1 for k in range(4)]
+        lines.append(f"usemtl {'a' if q < 2 else 'b'}")
+        lines.append("f " + " ".join(f"{i}/{i}/{i}" for i in c))
+    lines += ["v -3 -3 -3", "v 3 -3 -3", "v 3 3 -3", "v -3 3 -3",
+              "usemtl c", "f 25 26 27 28"]
+    path = os.path.join(root, "m.obj")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def model_phase(torch, dev, gpu) -> None:
+    """The triangle-model renderer: the textured cube written as OBJ +
+    MTL + PNGs, rotated, ``ModelRenderer`` at 1920x1080 on the card
+    (timed, launching no kernel of the port), then at 192x108 the card's
+    image and depth against the CPU's (MODEL_RGB_TOL, MODEL_DEPTH_RTOL)."""
+    import numpy as np
+
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.models.mesh import load_obj
+    from nrc_hpm_tpu_torch.models.raster import ModelRenderer
+
+    model = load_obj(write_model(MODEL_DIR))
+    c, s_ = np.cos(0.6), np.sin(0.6)
+    rot = np.array([[c, 0, s_, 0], [0, 1, 0, 0], [-s_, 0, c, 0],
+                    [0, 0, 0, 1]], np.float32)
+    model = model.transformed(rot)
+    sizes = [m.material.diffuse_texture.shape[:2] for m in model.meshes
+             if m.material.diffuse_texture is not None]
+
+    def render(w, h, d, reps=1):
+        r = ModelRenderer(w, h, device=d)
+        r.add_model(model)
+        cam = Camera.create((0.5, 0.8, 4.0), (-0.1, -0.2, -1.0),
+                            aspect=w / h, device=d)
+        out = r.render(cam)
+        times = []
+        for _ in range(reps):
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = r.render(cam)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return out, times
+
+    zero_launches()
+    (img, depth), times = render(1920, 1080, dev, reps=3)
+    check_launches(read_launches(), (), "model 1920x1080")
+    hit = img[..., 3] == 1.0
+    share = float(hit.float().mean())
+    if not bool(torch.isfinite(img).all()) or not 0.05 < share < 0.95 or \
+            not torch.equal(torch.isfinite(depth), hit):
+        raise AssertionError(f"model 1920x1080: hit share {share:.4f}")
+    print(f"model 1920x1080 ({sum(m.indices.shape[0] for m in model.meshes)}"
+          f" triangles, textures {sizes}): {statistics.median(times):.2f} "
+          f"ms a render (median of {times}), hit share {share:.4f}, on {gpu}")
+
+    w, h = SMALL_MODEL
+    (gi, gd), _ = render(w, h, dev)
+    (ci, cd), _ = render(w, h, torch.device("cpu"))
+    gi, gd = gi.cpu(), gd.cpu()
+    same_hit = torch.equal(gi[..., 3], ci[..., 3])
+    both = (gi[..., 3] == 1.0) & (ci[..., 3] == 1.0)
+    rgb_err = float((gi - ci).abs()[both].max())
+    dep_err = float(((gd - cd).abs() / cd.abs())[both].max())
+    print(f"model {w}x{h}, card vs CPU: hit mask equal {same_hit}, rgb "
+          f"max_abs_err {rgb_err:.3e} (need <= {MODEL_RGB_TOL}), depth max "
+          f"rel err {dep_err:.3e} (need <= {MODEL_DEPTH_RTOL})")
+    if not same_hit or rgb_err > MODEL_RGB_TOL or \
+            dep_err > MODEL_DEPTH_RTOL:
+        raise AssertionError("the card's model render disagrees with the "
+                             "CPU's")
+
+
+def same_option_frame(torch, got, want, w_channel: bool, label: str) -> None:
+    """The options' frame rule against the default frame."""
+    if w_channel:
+        sg, sw = got[..., 3] > 0, want[..., 3] > 0
+    else:
+        sg = (got[..., :3] - 0.1).abs().amax(-1) > 1e-6
+        sw = (want[..., :3] - 0.1).abs().amax(-1) > 1e-6
+    agree = sg == sw
+    share = float(agree.float().mean())
+    err = float((got - want).abs().amax(-1)[agree].max())
+    print(f"{label} vs the default frame: did-scatter agrees on "
+          f"{share:.6f} (need >= {OPTION_SHARE}), max_abs_err there "
+          f"{err:.3e} (need <= 1e-3)")
+    if share < OPTION_SHARE or err > 1e-3:
+        raise AssertionError(f"{label} disagrees with the default frame")
+
+
+def options_phase(torch, dev, vol, gpu) -> None:
+    """The frame options at 1920x1080: a frozen NRC frame at
+    ``compact=True`` and at ``trace_chunks=4``, and an MC frame at
+    ``trace_chunks=4``, each against the default frame from the same
+    seed (two frames each, from ``init_state(0)``), each path's kernels
+    and no other launched, frame 2 timed."""
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.config import AppConfig
+    from nrc_hpm_tpu_torch.renderer import McRenderer, NrcRenderer
+
+    cam = Camera.reference_camera(device=dev)
+    cases = (("NRC frozen", NrcRenderer, FROZEN_KERNELS,
+              dict(compact=True)),
+             ("NRC frozen", NrcRenderer, FROZEN_KERNELS,
+              dict(trace_chunks=OPTION_CHUNKS)),
+             ("MC", McRenderer, MC_KERNELS,
+              dict(trace_chunks=OPTION_CHUNKS)))
+    default = {}
+    for kind, cls, kernels, opts in cases:
+        images = []
+        for kw in ({}, opts):
+            key = (kind, tuple(kw.items()))
+            if key in default:
+                images.append(default[key])
+                continue
+            r = cls(AppConfig(**kw), vol)
+            step = (lambda st, r=r: r.step(st, cam, train=False)) \
+                if cls is NrcRenderer else (lambda st, r=r: r.step(st, cam))
+            state = r.init_state(0)
+            zero_launches()
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state = step(state)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            size = f"{r.width}x{r.height}"
+            label = f"{kind} {size} {kw or 'default'}"
+            check_launches(read_launches(), kernels, label)
+            print(f"{label}: frame 2 {times[1]:.1f} ms (frame 1 "
+                  f"{times[0]:.1f} ms), on {gpu}")
+            default.setdefault(key, state.image)
+            images.append(state.image)
+        same_option_frame(torch, images[1], images[0], cls is McRenderer,
+                          f"{kind} {size} {opts}")
+
+
 def main() -> int:
     import torch
 
@@ -1761,11 +2137,16 @@ def main() -> int:
     launches["fused_mlp"] = encodings_phase(torch, dev, vol, cfg,
                                             gpu)["fused_mlp"]
     launches.update(coarse_phase(torch, dev, vol, cfg, gpu))
+    options_phase(torch, dev, vol, gpu)
     mc_phase(torch, dev, vol, cfg, gpu)
     small_mc_check(torch, dev)
+    restir_phase(torch, dev, vol, gpu)
+    small_restir_check(torch, dev)
+    model_phase(torch, dev, gpu)
     quality_phase(torch, dev, vol, gpu, r, state)
     del r, state
     app_phase(torch, gpu)
+    app_restir_phase(torch, gpu)
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}))

@@ -11,14 +11,16 @@ Port of ``nrc_hpm_tpu/app.py``, the same flags, defaults and frame loop:
 - EXR export of the accumulated images on exit and checkpointing of the
   trained cache.
 
-It runs on the card (``--platform cuda``, the default) and fails where
-there is none; ``--platform cpu`` runs the plain versions on the CPU.
-Sharding (``--mesh N`` with N > 0) and the ReSTIR renderer are not ported
-and raise ``NotImplementedError``.
+``--renderer restir`` runs the ReSTIR renderer instead (its temporal
+history cleared on a camera cut; ``restir.exr`` on export).  It runs on
+the card (``--platform cuda``, the default) and fails where there is
+none; ``--platform cpu`` runs the plain versions on the CPU.  Sharding
+(``--mesh N`` with N > 0) is not ported and raises
+``NotImplementedError``.
 
 Usage:
   python -m nrc_hpm_tpu_torch.app [17 positional args] [--frames N]
-      [--width W] [--height H] [--renderer nrc|mc|both]
+      [--width W] [--height H] [--renderer nrc|mc|both|restir]
       [--benchmark-every K] [--platform cuda|cpu] [--out DIR]
       [--checkpoint PATH] [--load-checkpoint PATH] [--export-exr]
 """
@@ -128,10 +130,6 @@ def main(argv=None) -> int:
     if args.mesh:
         raise NotImplementedError(
             "--mesh: sharding is not ported (ROADMAP.md queue 1, item 5)")
-    if args.renderer == "restir":
-        raise NotImplementedError(
-            "--renderer restir: the ReSTIR renderer is not ported "
-            "(ROADMAP.md queue 1, item 3)")
 
     import numpy as np
     import torch
@@ -187,6 +185,11 @@ def main(argv=None) -> int:
     if args.renderer in ("mc", "both"):
         mc_renderer = McRenderer(cfg, device=device)
         mc_state = mc_renderer.init_state(0)
+    restir_renderer = restir_state = None
+    if args.renderer == "restir":
+        from .models.restir import RestirRenderer
+        restir_renderer = RestirRenderer(cfg, device=device)
+        restir_state = restir_renderer.init_state(0)
 
     # opened only now, so a run that fails to load its scene leaves the
     # logs of an earlier run as they were
@@ -209,7 +212,7 @@ def main(argv=None) -> int:
         if cfg.scene.dynamic:
             from .lights import update_scene
             dt_s = t0 - last_t
-            for r in (nrc_renderer, mc_renderer):
+            for r in (nrc_renderer, mc_renderer, restir_renderer):
                 if r is not None:
                     r.lights = update_scene(r.lights, cfg.scene, dt_s)
         last_t = t0
@@ -221,10 +224,18 @@ def main(argv=None) -> int:
                     nrc_state = reset_accumulation(nrc_state)
                 if mc_state is not None:
                     mc_state = reset_accumulation(mc_state)
+                if restir_state is not None:
+                    # ReSTIR keeps no blend accumulation; a camera cut
+                    # invalidates its temporal-reuse history instead
+                    restir_state = dataclasses.replace(
+                        restir_state, old_reservoirs=torch.zeros_like(
+                            restir_state.old_reservoirs), frame=0)
         if nrc_renderer is not None:
             nrc_state = nrc_renderer.step(nrc_state, cam, train=train)
         if mc_renderer is not None:
             mc_state = mc_renderer.step(mc_state, cam)
+        if restir_renderer is not None:
+            restir_state = restir_renderer.step(restir_state, cam)
         sync()
         frame_ms = (time.time() - t0) * 1000.0
 
@@ -282,6 +293,9 @@ def main(argv=None) -> int:
                       host(_renderer_image(nrc_renderer, nrc_state)))
         if mc_state is not None:
             write_exr(os.path.join(out_dir, "mc.exr"), host(mc_state.image))
+        if restir_state is not None:
+            write_exr(os.path.join(out_dir, "restir.exr"),
+                      host(restir_state.image))
         print(f"exported EXRs to {out_dir}")
 
     if args.checkpoint and nrc_state is not None:

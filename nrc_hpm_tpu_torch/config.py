@@ -76,6 +76,19 @@ class SceneConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RestirConfig:
+    """The ReSTIR renderer's constants (``models/restir.py``): candidate
+    path vertices per pixel, the spatial kernel's side, the temporal
+    ring's slots, and weighted-RIS splicing (False: the shaders' uniform
+    1/stream splicing)."""
+
+    path_vertex_count: int = 8
+    spatial_kernel_size: int = 3
+    temporal_kernel_size: int = 2
+    mis_weights: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class AppConfig:
     # NN training
     loss_fn: str = "RelativeL2Luminance"
@@ -99,6 +112,7 @@ class AppConfig:
     train_ray_length: int = 32
     render_width: int = 1920
     render_height: int = 1080
+    restir: RestirConfig = dataclasses.field(default_factory=RestirConfig)
     # cap on tracking events per track call (the reference caps its loops
     # at 128) and on primary bounces
     max_track_steps: int = 128
@@ -106,6 +120,15 @@ class AppConfig:
     # MC ground-truth path length (the reference's main loop uses 32; its
     # golden images use 64)
     mc_path_length: int = 32
+    # the per-pixel traces (the NRC primary pass, the MC frame) run over
+    # this many leading-axis chunks, one after the other; a count that does
+    # not divide the lanes runs one chunk
+    trace_chunks: int = 1
+    # False: the NRC frame infers every pixel instead of the scattered
+    # ones only (the composite reads the scattered ones either way)
+    infer_filter: bool = True
+    # the NRC primary pass traces only the rays that hit the volume box
+    compact: bool = False
     # compute dtype of the MLP ("bfloat16" or "float32")
     mlp_dtype: str = "bfloat16"
     # bf16 packed-table forward for grids of <= 2^16 entries per level

@@ -13,8 +13,13 @@ segments are tracked one after the other and the environment direction
 is drawn after the other lights' tracks, the reference's order.  With
 ``env_fixed16`` the environment sample's transmittance is the 16-step
 fixed estimator instead, and only the other lights' segments are
-ratio-tracked.  ``coarse`` is the ``pw`` trackers' profile interval
-count.
+ratio-tracked.  ``active`` masks lanes (they are tracked at ``tmax`` 0
+and draw no direction), and ``env_dir`` gives the ReSTIR shading pass's
+3-argument form (the env term along a stored direction through the
+16-step estimator).  Lanes of any other lead shape than (N, 3), such as
+that pass's (H, W) pixels, are flattened and tracked segment after
+segment, as the JAX package tracks them.  ``coarse`` is the ``pw``
+trackers' profile interval count.
 
 ``trace_path`` runs each bounce in two phases (delta tracking, then direct
 lighting and the new direction) on the lanes alive at that phase,
@@ -114,10 +119,34 @@ class TraceParams:
 
 
 def trace_scene(state, vol: Volume, lights: Lights, p: TraceParams, pos,
-                direction, plan_lanes: int | None = None):
-    """TraceScene(pos, dir) on (N, 3) live lanes: returns (rgb (N, 3),
-    new_state)."""
-    n = pos.shape[0]
+                direction, active=None, env_dir=None,
+                plan_lanes: int | None = None):
+    """TraceScene(pos, dir): direct lighting at scatter points ``pos``
+    (..., 3).  Returns (rgb (..., 3), new_state).
+
+    ``active`` (...,) masks the lanes: inactive ones draw no direction and
+    are tracked at ``tmax`` 0, though each tracker call still advances
+    their chain (pw, fast).  With ``env_dir`` (..., 3) this is the
+    3-argument overload of the ReSTIR shading pass: the env term looks
+    along the given direction through the 16-step fixed transmittance
+    and draws nothing.
+
+    As in the JAX package, only (N, 3) lanes in ``pw``/``fast`` mode batch
+    their shadow segments into one call (the env direction drawn first);
+    any other lead shape, such as the ReSTIR pass's (H, W) pixels, is
+    flattened and its segments tracked one after the other, the env
+    direction drawn after the other lights' tracks.  ``plan_lanes`` (the
+    flattened count by default) is the lane count the JAX package's
+    tracker sees per segment."""
+    lead = pos.shape[:-1]
+    batched_form = pos.ndim == 2
+    n = pos[..., 0].numel()
+    pos, direction = pos.reshape(n, 3), direction.reshape(n, 3)
+    state = state.reshape(n)
+    if active is not None:
+        active = active.reshape(n)
+    if env_dir is not None:
+        env_dir = env_dir.reshape(n, 3)
     plan_lanes = n if plan_lanes is None else plan_lanes
     total = torch.zeros_like(pos)
     segs = []   # (start, end, weight_fn)
@@ -139,13 +168,23 @@ def trace_scene(state, vol: Volume, lights: Lights, p: TraceParams, pos,
         phase = hg_phase(torch.sum(to_light * -direction, dim=-1), vol.g)
         segs.append((lpos, pos, lambda tr, ph=phase, pl=pl:
                      pl.color * (pl.strength * tr * ph)[..., None]))
-    if p.flags.env_on:
-        if p.mode == "seq":
+    env_sample = p.flags.env_on and env_dir is None
+    batched = (p.mode != "seq" and batched_form
+               and len(segs) + int(env_sample) > 1)
+    if p.flags.env_on and env_dir is not None:
+        _, exit_pt, _ = find_entry_exit(vol, pos, env_dir)
+        trans = transmittance.fixed_step_transmittance(vol, pos, exit_pt, 16)
+        phase = hg_phase(torch.sum(-direction * env_dir, dim=-1), vol.g)
+        total = total + sample_env_map(lights.env, env_dir) * (
+            trans * phase)[..., None]
+    elif env_sample:
+        if not batched:
             # the reference's order: the other lights' tracks draw first
-            total, state = _track_each(state, vol, p, segs, total)
+            total, state = _track_each(state, vol, p, segs, total, active,
+                                       plan_lanes)
             segs = []
         rand_dir, state = new_ray_dir(state, direction, vol.g,
-                                      phase_sampling=False)
+                                      phase_sampling=False, active=active)
         phase = hg_phase(torch.sum(rand_dir * -direction, dim=-1), vol.g)
         _, exit_pt, _ = find_entry_exit(vol, pos, rand_dir)
         env = sample_env_map(lights.env, rand_dir)
@@ -156,8 +195,10 @@ def trace_scene(state, vol: Volume, lights: Lights, p: TraceParams, pos,
         else:
             segs.append((pos, exit_pt, lambda tr, ph=phase, env=env:
                          env * (ph * tr)[..., None]))
-    if p.mode == "seq" or not segs:
-        return _track_each(state, vol, p, segs, total)
+    if not (batched and len(segs) > 1):
+        total, state = _track_each(state, vol, p, segs, total, active,
+                                   plan_lanes)
+        return total.reshape(*lead, 3), state.reshape(lead)
 
     states = [state]
     for _ in range(len(segs) - 1):
@@ -166,17 +207,20 @@ def trace_scene(state, vol: Volume, lights: Lights, p: TraceParams, pos,
     trans, state_cat = p.ratio_track(
         torch.cat(states), vol, torch.cat([s[0] for s in segs]),
         torch.cat([s[1] for s in segs]), p.max_track_steps,
+        active=None if active is None else active.repeat(k),
         **p.plan(k * plan_lanes))
     for j, (_, _, weight) in enumerate(segs):
         total = total + weight(trans[j * n:(j + 1) * n])
     return total, state_cat[(k - 1) * n:]
 
 
-def _track_each(state, vol: Volume, p: TraceParams, segs, total):
-    """Ratio-track the shadow segments one after the other (``seq``)."""
+def _track_each(state, vol: Volume, p: TraceParams, segs, total, active,
+                plan_lanes: int):
+    """Ratio-track the shadow segments one after the other."""
     for start, end, weight in segs:
         trans, state = p.ratio_track(state, vol, start, end,
-                                     p.max_track_steps)
+                                     p.max_track_steps, active=active,
+                                     **p.plan(plan_lanes))
         total = total + weight(trans)
     return total, state
 
@@ -254,7 +298,8 @@ def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
             break
         f_i = factor[idx] * 0.5
         light, st = trace_scene(
-            state[idx], vol, lights, p_b, point[idx], direction[idx], plan)
+            state[idx], vol, lights, p_b, point[idx], direction[idx],
+            plan_lanes=plan)
         radiance = radiance.index_put((idx,),
                                       radiance[idx] + light * f_i[:, None])
         factor = factor.index_put((idx,), f_i)

@@ -10,10 +10,10 @@ builds new tensors, so the caller's state is read and never written.
 
 Stage taxonomy (the JAX package's keys):
   clear        ring head/tail wrap
-  gen_rays     primary short paths + NRC query export (``primary_pass``)
+  gen_rays     primary short paths + NRC query export (``r.primary``)
   prep_infer   5-float NrcInput pack
   filter       scattered-pixel compaction index (``torch.nonzero``)
-  nn_infer     cache inference on the scattered pixels
+  nn_infer     cache inference on the scattered pixels (``r.infer``)
   prep_train   train rays, long paths, ring push, pack
   nn_train     the frame's optimizer steps
   nn           nn_infer + nn_train
@@ -80,12 +80,12 @@ def profile_nrc_frame(renderer, state, camera,
     """Profile one NRC frame stage by stage.  Returns {stage: ms} plus
     'total' (a real training step) and 'theoretical_fps' = 1000/total."""
     from .camera import pixel_rays
-    from .renderer import infer_filtered, pack_nrc_inputs, primary_pass
+    from .renderer import pack_nrc_inputs
     from .ring_buffer import ring_wrap
     from .utils import prng, rng
 
     r = renderer
-    cfg, vol = r.cfg, r.vol
+    vol = r.vol
     device = torch.device(r.device)
     n = r.height * r.width
 
@@ -99,8 +99,7 @@ def profile_nrc_frame(renderer, state, camera,
         return _stage_ms(fn, device, reps)
 
     def gen():
-        return primary_pass(rng_state, vol, r.lights, r.primary_params, cfg,
-                            o, d)
+        return r.primary(rng_state, o, d)
 
     out: Dict[str, float] = {}
     out["clear"] = timed(lambda: ring_wrap(state.ring))
@@ -111,8 +110,7 @@ def profile_nrc_frame(renderer, state, camera,
     x5 = pack_nrc_inputs(vol, prim["nrc_pos"], prim["nrc_dir"])
     scat = prim["did_scatter"]
     out["filter"] = timed(lambda: torch.nonzero(scat))
-    out["nn_infer"] = timed(
-        lambda: infer_filtered(r.cache, state.nrc, x5, scat))
+    out["nn_infer"] = timed(lambda: r.infer(state.nrc, x5, scat))
 
     ring = ring_wrap(state.ring)
     out["prep_train"] = timed(
@@ -122,7 +120,7 @@ def profile_nrc_frame(renderer, state, camera,
         lambda: r.cache.train_frame(state.nrc, train_x5, target))
     out["nn"] = out["nn_infer"] + out["nn_train"]
 
-    nrc_rgb = infer_filtered(r.cache, state.nrc, x5, scat)
+    nrc_rgb = r.infer(state.nrc, x5, scat)
     out["render"] = timed(lambda: r.composite(state, prim, nrc_rgb))
 
     out["total"] = timed(lambda: r.step(state, camera, train=True))

@@ -2,14 +2,19 @@
 
 Port of ``nrc_hpm_tpu/renderer.py``.
 
+Both trace the pixels in ``trace_chunks`` chunks, one after the other
+(``_map_chunks``).
+
 ``McRenderer`` traces one ``path_length``-bounce path per pixel per frame
 (``trace_fixed`` from the camera, the pixels whose ray misses the box
 inactive; the env map where a pixel's path never scatters) and blends the frames into a running mean; the image's
 fourth channel is the frame's did-scatter flag.
 
 ``NrcRenderer.step`` renders the NRC frame: pixel rays and the RNG init,
-the 2-bounce primary trace with direct lighting, the 5-float NRC queries,
-cache inference on the scattered pixels, composite and temporal blend;
+the 2-bounce primary trace with direct lighting (``compact``: only the
+rays that hit the box), the 5-float NRC queries, cache inference on the
+scattered pixels (every pixel without ``infer_filter``), composite and
+temporal blend;
 then, when training (the default), the train rays of a strided pixel
 grid (scattered pixels continue from their NRC query, the others pop a
 stored ray from the ring buffer), ``train_spp`` long ``trace_fixed``
@@ -97,12 +102,17 @@ class McRenderer:
         ro, rd, frag_uv = pixel_rays(camera, W, H)
         rng_state = rng.init_state(frag_uv, rng.frame_random(sub)).reshape(n)
 
-        o, d = ro.expand(n, 3), rd.reshape(n, 3)
-        res = trace_fixed(rng_state, vol, lights, self.params, o, d,
-                          self.path_length,
-                          active=~primary_miss_mask(vol, o, d))
-        did_scatter = res["did_scatter"].reshape(H, W, 1)
-        rgb = torch.where(did_scatter, res["radiance"].reshape(H, W, 3),
+        def mc_chunk(s, o, d):
+            res = trace_fixed(s, vol, lights, self.params, o, d,
+                              self.path_length,
+                              active=~primary_miss_mask(vol, o, d))
+            return res["did_scatter"], res["radiance"]
+
+        did_scatter, radiance = _map_chunks(
+            mc_chunk, self.cfg.trace_chunks, rng_state, ro.expand(n, 3),
+            rd.reshape(n, 3))
+        did_scatter = did_scatter.reshape(H, W, 1)
+        rgb = torch.where(did_scatter, radiance.reshape(H, W, 3),
                           sample_env_map(lights.env, rd))
         out = torch.cat([rgb, did_scatter.to(torch.float32)], dim=-1)
         image, blend_index = _blend(state, out, self.blend)
@@ -149,6 +159,49 @@ def primary_pass(rng_state, vol, lights, params: TraceParams,
                 nrc_dir=res["terminal_dir"])
 
 
+def _map_chunks(fn, n_chunks: int, *arrays):
+    """``fn`` over ``n_chunks`` leading-axis chunks of ``arrays``, one
+    after the other, each chunk's trackers scheduled for its own lane
+    count; the outputs (a tuple or a dict of tensors) are concatenated.
+    A count that does not divide the lanes runs one chunk, as the JAX
+    package does."""
+    n = arrays[0].shape[0]
+    if n_chunks <= 1 or n % n_chunks:
+        return fn(*arrays)
+    outs = [fn(*part) for part in zip(*(a.split(n // n_chunks)
+                                        for a in arrays))]
+    if isinstance(outs[0], dict):
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def primary_pass_compact(rng_state, vol, lights, params: TraceParams,
+                         cfg: AppConfig, ro, rd, chunks: int = 1):
+    """``primary_pass`` that traces only the rays hitting the volume box
+    (``torch.nonzero``, then ``trace_primary`` over ``chunks`` chunks of
+    them, then a scatter back; the other lanes' queries are zero).  The
+    same contract and values, the trackers scheduled for the compacted
+    lane count."""
+    n = ro.shape[0]
+    idx = torch.nonzero(~primary_miss_mask(vol, ro, rd)).squeeze(1)
+
+    def trace_hit(s, o, d):
+        res = trace_primary(s, vol, lights, params, o, d, cfg)
+        return (res["radiance"], res["throughput"], res["did_scatter"],
+                res["terminal_pos"], res["terminal_dir"])
+
+    outs = _map_chunks(trace_hit, chunks, rng_state[idx], ro[idx], rd[idx])
+    radiance, thr, did_scatter, nrc_pos, nrc_dir = (
+        torch.zeros((n,) + o.shape[1:], dtype=o.dtype,
+                    device=o.device).index_put((idx,), o) for o in outs)
+    use_env = ~did_scatter
+    rgb = torch.where(use_env[..., None], sample_env_map(lights.env, rd),
+                      radiance)
+    w = torch.where(use_env, 1.0, thr)
+    return dict(primary_color=torch.cat([rgb, w[..., None]], dim=-1),
+                did_scatter=did_scatter, nrc_pos=nrc_pos, nrc_dir=nrc_dir)
+
+
 def pack_nrc_inputs(vol: Volume, pos, direction) -> torch.Tensor:
     """(pos, dir) -> the 5-float query: box coordinates and the
     normalized (theta, phi)."""
@@ -157,10 +210,13 @@ def pack_nrc_inputs(vol: Volume, pos, direction) -> torch.Tensor:
 
 
 def infer_filtered(cache: NeuralRadianceCache, nrc_state: NrcState, x5,
-                   scat) -> torch.Tensor:
+                   scat, infer_filter: bool = True) -> torch.Tensor:
     """Cache inference on the scattered lanes only; other lanes get zero
     (the reference zero-fills its infer buffers and skips empty batches;
-    the composite never reads those lanes)."""
+    the composite never reads those lanes).  ``infer_filter=False``
+    infers every lane."""
+    if not infer_filter:
+        return cache.infer(nrc_state, x5)
     out = torch.zeros((x5.shape[0], 3), dtype=torch.float32,
                       device=x5.device)
     idx = torch.nonzero(scat).squeeze(1)
@@ -241,14 +297,12 @@ class NrcRenderer:
             frame_random = rng.frame_random(sub)
         ro, rd, frag_uv = pixel_rays(camera, W, H)
         rng_state = rng.init_state(frag_uv, frame_random).reshape(n)
-        prim = primary_pass(rng_state, vol, self.lights, self.primary_params,
-                            self.cfg, ro.expand(n, 3), rd.reshape(n, 3))
+        prim = self.primary(rng_state, ro.expand(n, 3), rd.reshape(n, 3))
 
         nrc_rgb = None
         if self.show_nrc:
             x5 = pack_nrc_inputs(vol, prim["nrc_pos"], prim["nrc_dir"])
-            nrc_rgb = infer_filtered(self.cache, state.nrc, x5,
-                                     prim["did_scatter"])
+            nrc_rgb = self.infer(state.nrc, x5, prim["did_scatter"])
         image, blend_index = self.composite(state, prim, nrc_rgb)
 
         ring = ring_wrap(state.ring)
@@ -258,6 +312,25 @@ class NrcRenderer:
         return dataclasses.replace(state, image=image,
                                    blend_index=blend_index, ring=ring,
                                    nrc=nrc, key=key)
+
+    def primary(self, rng_state, ro, rd) -> dict:
+        """The primary pass on (N, 3) pixel rays, as the configuration
+        asks: compacted to the box-hitting rays (``compact``) and over
+        ``trace_chunks`` chunks."""
+        cfg = self.cfg
+        if cfg.compact:
+            return primary_pass_compact(rng_state, self.vol, self.lights,
+                                        self.primary_params, cfg, ro, rd,
+                                        chunks=cfg.trace_chunks)
+        return _map_chunks(
+            lambda s, o, d: primary_pass(s, self.vol, self.lights,
+                                         self.primary_params, cfg, o, d),
+            cfg.trace_chunks, rng_state, ro, rd)
+
+    def infer(self, nrc: NrcState, x5, scat) -> torch.Tensor:
+        """``infer_filtered`` under the configuration's ``infer_filter``."""
+        return infer_filtered(self.cache, nrc, x5, scat,
+                              self.cfg.infer_filter)
 
     def composite(self, state: NrcRenderState, prim: dict, nrc_rgb):
         """The primary color plus, on scattered pixels, the clamped cache

@@ -14,8 +14,9 @@ the first frames' loss within 1e-4 relative and the exported MC image
 under the frame tests' rule (did-scatter agrees on >= 99% of pixels, the
 image within 1e-3 there), as tests/test_torch_train.py and
 test_torch_mc_renderer.py hold them; without ``--platform cpu`` the app
-needs the card; ``--mesh`` and ``restir`` refuse.  The port's other runs
-are in test_torch_app_runs.py."""
+needs the card; ``--mesh`` refuses.  The port's other runs are in
+test_torch_app_runs.py, the ``--renderer restir`` runs in
+test_torch_app_restir.py."""
 
 import json
 import os
@@ -141,8 +142,6 @@ def test_first_frames_match_jax(runs):
 def test_refusals(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 5"):
         tapp.main(ARGV + FLAGS + ["--mesh", "2"])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tapp.main(ARGV + FLAGS + ["--renderer", "restir"])
     assert tapp.build_argparser().parse_args([]).platform == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -67,3 +67,57 @@ def test_new_fields_have_jax_defaults():
     for name in ("pos_n_frequencies", "dir_n_frequencies"):
         assert getattr(tcfg.EncodingConfig(), name) == \
             getattr(jcfg.EncodingConfig(), name)
+
+
+# every AppConfig field the two packages share, each off its default
+SHARED_KW = dict(
+    loss_fn="L1", optimizer="SGD", learning_rate=0.02, ema_decay=0.9,
+    encoding=dict(pos_id=2, dir_id=1, n_levels=8, n_features_per_level=4,
+                  log2_hashmap_size=14, base_resolution=8,
+                  per_level_scale=1.5, pos_n_frequencies=6,
+                  dir_n_frequencies=2, oneblob_n_bins=8),
+    nn_width=32, nn_depth=3, log2_infer_batch_size=18,
+    log2_train_batch_size=10, train_batch_count=2,
+    scene=dict(id=3, dir_light_strength=4.0, point_light_strength=2.0,
+               hdr_env_map_path="env.hdr", hdr_env_map_strength=0.5,
+               density=0.3, dynamic=True, volume_path="v.vdb",
+               volume_g=0.5),
+    train_ring_buf_size=2.0, train_spp=2, primary_ray_length=2,
+    primary_ray_prob=0.5, train_ray_length=16, render_width=640,
+    render_height=360,
+    restir=dict(path_vertex_count=5, spatial_kernel_size=5,
+                temporal_kernel_size=3, mis_weights=False),
+    max_track_steps=64, max_primary_bounces=32, mc_path_length=64,
+    mlp_dtype="float32", trace_chunks=4, infer_filter=False, compact=True,
+    hash_train_fast=False, env_fixed16=True, train_target_clamp=4.0,
+    train_cache_bootstrap=True)
+NESTED = dict(encoding="EncodingConfig", scene="SceneConfig",
+              restir="RestirConfig")
+# the JAX fields the port leaves out: sharding waits for its slice, and
+# the static TPU compaction capacities have nothing to port
+NOT_PORTED = {"mesh", "infer_compact", "infer_compact_frac"}
+
+
+def _build(mod):
+    kw = {k: getattr(mod, NESTED[k])(**v) if k in NESTED else v
+          for k, v in SHARED_KW.items()}
+    return mod.AppConfig(**kw)
+
+
+def test_every_shared_field_builds_alike():
+    """Both AppConfigs from one keyword dict that sets every field the
+    port has to a value off its default: the same fields, the same
+    derived sizes and name."""
+    names = {f.name for f in dataclasses.fields(tcfg.AppConfig)}
+    assert names == set(SHARED_KW)
+    assert {f.name for f in dataclasses.fields(jcfg.AppConfig)} - names \
+        == NOT_PORTED
+    port, ref = _build(tcfg), _build(jcfg)
+    _same_fields(port, ref)
+    for f in dataclasses.fields(tcfg.AppConfig):
+        assert getattr(port, f.name) != getattr(tcfg.AppConfig(), f.name), \
+            f"{f.name} is left at its default"
+    assert port.name() == ref.name()
+    assert port.train_subset() == ref.train_subset()
+    assert port.train_ring_size == ref.train_ring_size
+    _same_fields(tcfg.RestirConfig(), jcfg.RestirConfig())

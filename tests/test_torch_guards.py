@@ -36,7 +36,10 @@ def test_port_imports_no_jax():
             "nrc_hpm_tpu_torch.ops.hash_grid_train, nrc_hpm_tpu_torch.app, "
             "nrc_hpm_tpu_torch.profiler, nrc_hpm_tpu_torch.camera_path, "
             "nrc_hpm_tpu_torch.utils.vdb, nrc_hpm_tpu_torch.utils.metrics, "
-            "nrc_hpm_tpu_torch.utils.checkpoint\n"
+            "nrc_hpm_tpu_torch.utils.checkpoint, "
+            "nrc_hpm_tpu_torch.models.restir, nrc_hpm_tpu_torch.models.mesh, "
+            "nrc_hpm_tpu_torch.models.raster, nrc_hpm_tpu_torch.utils.png, "
+            "nrc_hpm_tpu_torch.utils.texture\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'nrc_hpm_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -76,7 +79,10 @@ def test_kernel_ab_refuses_without_gpu(tmp_path):
 def _entry_points():
     from nrc_hpm_tpu_torch import (camera, camera_path, lights, renderer,
                                    ring_buffer, weights)
+    from nrc_hpm_tpu_torch.models.mesh import flatten_model
     from nrc_hpm_tpu_torch.models.nrc.cache import NeuralRadianceCache
+    from nrc_hpm_tpu_torch.models.raster import ModelRenderer
+    from nrc_hpm_tpu_torch.models.restir import RestirRenderer
     from nrc_hpm_tpu_torch.reference import GoldenReference, generate_golden
     from nrc_hpm_tpu_torch.utils import checkpoint
 
@@ -91,7 +97,8 @@ def _entry_points():
             Volume.from_vdb, renderer._volume_from_config,
             checkpoint.load_pytree, renderer.NrcRenderer,
             renderer.McRenderer, generate_golden,
-            camera_path.CameraPath.player]
+            camera_path.CameraPath.player, RestirRenderer, ModelRenderer,
+            flatten_model]
 
 
 @pytest.mark.parametrize("fn", _entry_points(),
