@@ -61,8 +61,20 @@ both``, four frames, the golden compared every other frame, the stage
 profile, EXRs and a checkpoint (the online frame's kernels and no
 other), then a frozen run from the checkpoint, which must load it
 bitwise, then ``--renderer restir`` for three 1080p frames with
-``--export-exr`` (K1/K2 only, a finite ``restir.exr``).  It prints the
-card's name and power limit, one line
+``--export-exr`` (K1/K2 only, a finite ``restir.exr``), then ``--mesh 1``
+for two online frames (the sharded renderer on a one-rank NCCL group,
+the golden compared every frame); the VDB is read through the native
+decoder (``csrc/nrcio.cpp``, built by g++ beside the nvcc builds) and
+held bitwise to the numpy parser.  Last, the sharded path
+(``ShardedNrcRenderer`` at ``AppConfig()`` and 1080p): on a one-rank NCCL
+group a frozen frame held to the single-device one (the JAX tests'
+rule), three online frames (the online frame's kernels and no other, one
+all-reduce per optimizer step), three more in turns with single-device
+frames, timed, and one under torch.profiler (the kernels and the NCCL
+operations); then two gloo ranks, processes spawned on the one card
+(NCCL takes one rank per card), two online frames each: the first
+gathered frame held to the single-device frozen frame, the replicas
+bitwise equal.  It prints the card's name and power limit, one line
 per kernel, the frame and path times, a JSON kernel summary, and as its
 last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -389,6 +401,7 @@ def build() -> dict:
     from nrc_hpm_tpu_torch.ops import (_build, fused_encode_mlp, fused_mlp,
                                        hash_grid_train, pw_kernels,
                                        table_gather)
+    from nrc_hpm_tpu_torch.utils import native
 
     t0 = time.perf_counter()
     jobs = [(pw_kernels._LIB, ("-fmad=false",)), (fused_encode_mlp._LIB, ()),
@@ -399,8 +412,16 @@ def build() -> dict:
         so = _build.library_path(*job)
         return so, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+    def run_native():
+        native._lib()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 1) as pool:
+        host = pool.submit(run_native)
         done = list(pool.map(run, jobs))
+        print(f"build: the native VDB decoder (csrc/nrcio.cpp, "
+              f"{os.path.basename(native.compiler_path())}) done after "
+              f"{host.result():.1f} s")
     each = ", ".join(f"{' '.join((job[0],) + job[1])} {s:.1f} s"
                      for job, (_, s) in zip(jobs, done))
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, "
@@ -1011,11 +1032,12 @@ def split_frame(torch, r, state, cam, gpu) -> None:
           f"inference, train rays, ring) {1e3 * rest:.1f} ms, on {gpu}")
 
 
-def profile_step(torch, label: str, step, frame_ms: float, gpu) -> None:
+def profile_step(torch, label: str, step, frame_ms: float, gpu):
     """torch.profiler over one call of ``step``: each kernel's launches
     (the wrappers' counts) and device ms, the device's busy share (its
     device time over the profiled call's host time, and over an
-    unprofiled one's ``frame_ms``) and the largest device operations."""
+    unprofiled one's ``frame_ms``) and the largest device operations.
+    Returns (launches, device rows)."""
     from torch.profiler import ProfilerActivity, profile
 
     zero_launches()
@@ -1044,6 +1066,7 @@ def profile_step(torch, label: str, step, frame_ms: float, gpu) -> None:
     top = sorted(ops, key=lambda o: -o[1])[:8]
     print(f"profiled {label}, largest device operations: "
           + "; ".join(f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in top))
+    return launches, ops
 
 
 def profile_frame(torch, r, state, cam, gpu, frame_ms: float) -> None:
@@ -1605,6 +1628,7 @@ def quality_phase(torch, dev, vol, gpu, nrc_renderer, nrc_state) -> None:
 APP_DIR = os.path.join(ROOT, "nrc_hpm_tpu_torch", "_build", "app_run")
 APP_FRAMES = 4                 # the app's --renderer both run ...
 APP_RELOAD_FRAMES = 2          # ... and the frozen run from its checkpoint
+APP_MESH_FRAMES = 2            # the --mesh 1 run
 # the keys of the JAX package's profile_nrc_frame
 STAGE_KEYS = ("clear", "gen_rays", "prep_infer", "filter", "nn_infer",
               "prep_train", "nn_train", "nn", "render", "stage_sum",
@@ -1647,14 +1671,31 @@ def app_phase(torch, gpu, extra=()) -> None:
     t0 = time.perf_counter()
     vw.write_vdb(vdb, [vw.Grid(data)], version=223,
                  compression=vw.COMPRESS_ZIP | vw.COMPRESS_ACTIVE_MASK)
-    back = load_vdb(vdb).data
     secs = time.perf_counter() - t0
-    if back.shape != data.shape or back.tobytes() != data.tobytes():
-        raise AssertionError("the written VDB does not read back bitwise")
+    t0 = time.perf_counter()
+    grid = load_vdb(vdb)                       # the native decoder
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = load_vdb(vdb, prefer_native=False)
+    parse_s = time.perf_counter() - t0
+    if (grid.name, grid.metadata) != ("density", {}) or not parsed.metadata:
+        raise AssertionError("the VDB was not read by the native decoder "
+                             "and by the numpy parser")
+    for g in (grid, parsed):
+        if g.data.shape != data.shape or g.data.tobytes() != data.tobytes():
+            raise AssertionError("the written VDB does not read back "
+                                 "bitwise")
+    if not (np.array_equal(grid.bbox_min, parsed.bbox_min)
+            and np.array_equal(grid.bbox_max, parsed.bbox_max)
+            and grid.voxel_size == parsed.voxel_size):
+        raise AssertionError("the native decoder's bbox or voxel size "
+                             "differs from the parser's")
     print(f"app scene: the procedural cloud {data.shape} (the WDAS cloud "
           f"is absent), written to {cfg.scene.volume_path} as VDB v223 zip "
-          f"+ active mask ({os.path.getsize(vdb)} bytes), read back "
-          f"bitwise; {secs:.1f} s")
+          f"+ active mask ({os.path.getsize(vdb)} bytes) in {secs:.1f} s, "
+          f"read back bitwise by the native decoder in {native_s:.4f} s "
+          f"and by the numpy parser in {parse_s:.4f} s (bbox and voxel "
+          f"size equal)")
     golden = os.path.join(APP_DIR, "reference", str(cfg.scene.id), "0.exr")
     os.makedirs(os.path.dirname(golden))
     shutil.copy(os.path.join(GOLDEN_DIR, str(cfg.scene.id), "0.exr"),
@@ -1922,6 +1963,291 @@ def app_restir_phase(torch, gpu, extra=()) -> None:
         raise AssertionError(f"{label}: restir.exr {img.shape} not finite")
 
 
+# The sharded path (ShardedNrcRenderer): each rank runs the online frame's
+# kernels on its rows and its slice of the train batches; the gradient
+# all-reduces and the image's all-gather are collectives (NCCL on the
+# card's one-rank group, gloo in the two-rank rehearsal), no port kernel.
+# Against the single-device frame from the same seed, the JAX tests' rule
+# (tests/test_sharding.py): > 97% of the pixels within 1e-4, the means
+# within 5e-3.
+SHARD_FRAMES = 3
+SHARD_PX_TOL, SHARD_PX_SHARE, SHARD_MEAN_TOL = 1e-4, 0.97, 5e-3
+REHEARSAL_RANKS, REHEARSAL_FRAMES = 2, 2
+REHEARSAL_DIR = os.path.join(ROOT, "nrc_hpm_tpu_torch", "_build",
+                             "rehearsal")
+
+
+def same_as_single(torch, got, want, label: str) -> None:
+    """The JAX tests' rule for a sharded frame against the single-device
+    one."""
+    per_px = (got - want).abs().amax(-1)
+    share = float((per_px < SHARD_PX_TOL).float().mean())
+    dmean = abs(float(got.mean()) - float(want.mean()))
+    print(f"{label}: {share:.6f} of the pixels within {SHARD_PX_TOL} of "
+          f"the single-device frame, max_abs_err {float(per_px.max()):.3g}"
+          f", means {dmean:.3g} apart")
+    if tuple(got.shape) != tuple(want.shape) or share <= SHARD_PX_SHARE \
+            or dmean >= SHARD_MEAN_TOL:
+        raise AssertionError(f"{label}: {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}, {share:.6f} of the "
+                             f"pixels close, means {dmean:.3g} apart")
+
+
+def replica_digest(nrc) -> str:
+    """sha256 of every replicated leaf's bytes: the parameters, the EMA,
+    Adam's moments and the loss."""
+    import hashlib
+
+    from nrc_hpm_tpu_torch.models.nrc.cache import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves([nrc.params, nrc.ema_params, nrc.opt_state["mu"],
+                          nrc.opt_state["nu"], nrc.loss]):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sharding_phase(torch, dev, vol, cfg, gpu) -> None:
+    """ShardedNrcRenderer on a one-rank NCCL group of this process
+    (``make_group(1)``): a frozen frame held to the single-device one;
+    SHARD_FRAMES online frames (the online frame's kernels and no other,
+    one all-reduce per optimizer step, finite, the loss, the ring); then
+    SHARD_FRAMES pairs of single-device and sharded online frames in
+    turns, timed; one profiled sharded frame (the port's kernels and the
+    NCCL operations).  Then the two-rank gloo rehearsal on this card
+    (``rehearsal``)."""
+    import torch.distributed as dist
+
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.parallel.sharding import (ShardedNrcRenderer,
+                                                     make_group)
+    from nrc_hpm_tpu_torch.renderer import NrcRenderer
+
+    size = f"{cfg.render_width}x{cfg.render_height}"
+    cam = Camera.reference_camera(
+        aspect=cfg.render_width / cfg.render_height, device=dev)
+    single = NrcRenderer(cfg, vol)
+    frozen_single = single.step(single.init_state(0), cam,
+                                train=False).image
+    t0 = time.perf_counter()
+    group = make_group(1, dev)
+    print(f"sharded: a one-rank {dist.get_backend(group)} group in "
+          f"{time.perf_counter() - t0:.1f} s")
+    all_reduce = dist.all_reduce
+    reduces = []
+
+    def counted(tensor, *args, **kwargs):
+        reduces.append(tensor.numel())
+        return all_reduce(tensor, *args, **kwargs)
+
+    try:
+        r = ShardedNrcRenderer(cfg, group=group, vol=vol)
+        frozen = r.final_image(r.step(r.init_state(0), cam, train=False))
+        same_as_single(torch, frozen, frozen_single,
+                       f"sharded frozen {size}, 1 rank")
+        label = f"sharded online {size}, 1 NCCL rank"
+        dist.all_reduce = counted
+        try:
+            state, launches, times = run_frames(
+                torch, r, r.init_state(0), cam, SHARD_FRAMES, train=True)
+        finally:
+            dist.all_reduce = all_reduce
+        check_image(torch, r, r.final_image(state), label)
+        check_launches(launches, ONLINE_KERNELS, label)
+        steps = cfg.train_batch_count * SHARD_FRAMES
+        if not torch.isfinite(state.nrc.loss) or state.nrc.step != steps \
+                or len(reduces) != steps:
+            raise AssertionError(f"{label}: loss {float(state.nrc.loss)}, "
+                                 f"{state.nrc.step} steps, "
+                                 f"{len(reduces)} all-reduces")
+        print(f"{label}: {len(reduces)} all-reduces of {reduces[0]} floats "
+              f"({4 * reduces[0] / 1e6:.1f} MB) in {SHARD_FRAMES} frames; "
+              f"first frame {1e3 * times[0]:.1f} ms; loss "
+              f"{float(state.nrc.loss):.4g}, ring head "
+              f"{int(state.ring.head)} tail {int(state.ring.tail)}")
+        # in turns, each from its own state: single, sharded, ...
+        st_single = single.init_state(0)
+        st_single, _, _ = run_frames(torch, single, st_single, cam, 1, True)
+        paired = {"single": [], "sharded": []}
+        for _ in range(SHARD_FRAMES):
+            for key, rr in (("single", single), ("sharded", r)):
+                st = st_single if key == "single" else state
+                st, _, t = run_frames(torch, rr, st, cam, 1, True)
+                paired[key].append(1e3 * t[0])
+                if key == "single":
+                    st_single = st
+                else:
+                    state = st
+        ms = statistics.mean(paired["sharded"])
+        ms_single = statistics.mean(paired["single"])
+        print(f"{label}: {ms:.1f} ms/frame against the single-device "
+              f"online frame's {ms_single:.1f} in turns "
+              f"({[round(t, 1) for t in paired['sharded']]} against "
+              f"{[round(t, 1) for t in paired['single']]}): "
+              f"{ms / ms_single:.3f}x; on {gpu}")
+        launches, ops = profile_step(torch, "sharded online frame",
+                                     lambda: r.step(state, cam), ms, gpu)
+        check_launches(launches, ONLINE_KERNELS, "profiled sharded frame")
+        nccl = [(k, t, c) for k, t, c in ops if "nccl" in k.lower()]
+        # NCCL completes a one-rank in-place all-reduce without a device
+        # operation
+        print("profiled sharded online frame, NCCL device operations: "
+              + ("; ".join(f"{k[:60]} {t:.4f} ms x{c}" for k, t, c in nccl)
+                 or "none"))
+        del r, state, single, st_single
+    finally:
+        dist.destroy_process_group()
+    rehearsal(torch, dev, cfg, frozen_single, gpu)
+
+
+def rehearsal(torch, dev, cfg, frozen_single, gpu,
+              ranks: int = REHEARSAL_RANKS, out_dir: str = REHEARSAL_DIR
+              ) -> None:
+    """``ranks`` gloo ranks, processes spawned here, all on ``dev`` (NCCL
+    takes one rank per card): REHEARSAL_FRAMES online frames
+    (``rehearsal_rank``).  The first frame's gathered image (inferred
+    before the frame trains: the frozen frame's) held to the
+    single-device frozen frame, the last one finite, the online frame's
+    kernels and no other on every rank, the replicas bitwise equal."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    mp.start_processes(rehearsal_rank, args=(ranks, str(dev), cfg, out_dir),
+                       nprocs=ranks, join=True, start_method="spawn")
+    secs = time.perf_counter() - t0
+    out = [torch.load(os.path.join(out_dir, f"rank{k}.pt"),
+                      weights_only=False) for k in range(ranks)]
+    label = (f"rehearsal {cfg.render_width}x{cfg.render_height}, {ranks} "
+             f"gloo ranks on {dev}")
+    for k, res in enumerate(out):
+        check_launches(res["launches"], ONLINE_KERNELS, f"{label}, rank {k}")
+        print(f"{label}, rank {k}: frames {res['ms']} ms, loss "
+              f"{res['loss']:.4g}, {res['steps']} steps, gather "
+              f"{res['gather']}")
+    if len({res["digest"] for res in out}) != 1:
+        raise AssertionError(f"{label}: the replicas differ "
+                             f"{[res['digest'][:12] for res in out]}")
+    first = out[0]["first"].to(frozen_single.device)
+    same_as_single(torch, first, frozen_single, f"{label}, first frame")
+    last = out[0]["last"]
+    if tuple(last.shape) != tuple(frozen_single.shape) or \
+            not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"{label}: the last image {tuple(last.shape)}"
+                             f" is not finite")
+    print(f"{label}: replicas bitwise equal (sha256 {out[0]['digest'][:16]}"
+          f"), {secs:.1f} s with the processes' start; on {gpu}")
+
+
+def rehearsal_rank(rank: int, ranks: int, device: str, cfg,
+                   out_dir: str) -> None:
+    """One rank of ``rehearsal``: a gloo group over a file store in
+    ``out_dir``, the procedural cloud, REHEARSAL_FRAMES online frames
+    from ``init_state(0)`` with the launch counts set to 0 just before;
+    writes its results to ``out_dir``/rank<k>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.parallel.sharding import ShardedNrcRenderer
+    from nrc_hpm_tpu_torch.utils.procedural import cloud_density
+    from nrc_hpm_tpu_torch.volume import Volume
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{out_dir}/store", rank=rank,
+        world_size=ranks)
+    try:
+        vol = Volume.from_dense(cloud_density(seed=0), cfg.scene.density,
+                                cfg.scene.volume_g, device=dev)
+        r = ShardedNrcRenderer(cfg, group=dist.group.WORLD, vol=vol)
+        cam = Camera.reference_camera(
+            aspect=cfg.render_width / cfg.render_height, device=dev)
+        state = r.init_state(0)
+        images, ms, how = [], [], f"all_gather of {dev.type} tensors"
+        zero_launches()
+        for _ in range(REHEARSAL_FRAMES):
+            sync()
+            t0 = time.perf_counter()
+            state = r.step(state, cam)
+            sync()
+            ms.append(round(1e3 * (time.perf_counter() - t0), 1))
+            try:
+                images.append(r.final_image(state).cpu())
+            except RuntimeError as e:
+                # gloo without CUDA all_gather: gather through the host
+                # here, said so
+                how = f"staged through the host ({str(e)[:80]})"
+                rows = [torch.empty_like(state.image, device="cpu")
+                        for _ in range(ranks)]
+                dist.all_gather(rows, state.image.cpu())
+                images.append(torch.cat(rows)[:r.height])
+        launches = read_launches()
+        torch.save(dict(first=images[0], last=images[-1], ms=ms,
+                        launches=launches, gather=how,
+                        digest=replica_digest(state.nrc),
+                        loss=float(state.nrc.loss), steps=state.nrc.step),
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def app_mesh_phase(torch, gpu, extra=()) -> None:
+    """``app.main --mesh 1`` from the app phase's working directory: the
+    sharded renderer on a one-rank group (NCCL on the card), online NRC
+    frames, the golden compared every frame (``final_image`` gathers),
+    the EXR; rc 0, the online frame's kernels and no other, finite losses
+    and EXR, every frame compared."""
+    import numpy as np
+
+    from nrc_hpm_tpu_torch import app
+    from nrc_hpm_tpu_torch.utils.exr import read_exr_rgba
+
+    cfg = app._config(app.build_argparser().parse_args(list(extra)))
+    cwd = os.getcwd()
+    os.chdir(APP_DIR)
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        rc = app.main(list(extra) + [
+            "--mesh", "1", "--renderer", "nrc", "--frames",
+            str(APP_MESH_FRAMES), "--export-exr", "--out", "mesh1"])
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        os.chdir(cwd)
+    label = f"app {cfg.render_width}x{cfg.render_height} --mesh 1"
+    if rc != 0:
+        raise AssertionError(f"{label}: app.main returned {rc}")
+    check_launches(launches, ONLINE_KERNELS, label)
+    with open(os.path.join(APP_DIR, "mesh1", "metrics.jsonl")) as f:
+        frames = [r for r in map(json.loads, f) if "frame" in r]
+    if [r["frame"] for r in frames] != list(range(APP_MESH_FRAMES)) or \
+            not all(math.isfinite(r["loss"]) and "nrc" in r
+                    for r in frames):
+        raise AssertionError(f"{label}: frame records {frames}")
+    img = read_exr_rgba(os.path.join(APP_DIR, "mesh1", "nrc.exr"))
+    finite = img.shape == (cfg.render_height, cfg.render_width, 4) and \
+        bool(np.isfinite(img).all())
+    print(f"{label}: {APP_MESH_FRAMES} frames of "
+          f"{[r['frame_time_ms'] for r in frames]} ms, losses "
+          f"{[round(r['loss'], 4) for r in frames]}, relBias "
+          f"{[round(r['nrc']['rel_bias'], 4) for r in frames]}; launches "
+          f"{launches}; nrc.exr {img.shape} finite {finite}; the run "
+          f"{secs:.1f} s; on {gpu}")
+    if not finite:
+        raise AssertionError(f"{label}: nrc.exr {img.shape} not finite")
+
+
 def write_model(root: str) -> str:
     """A textured cube as OBJ + MTL + two PNG textures of different sizes
     (64x64 on the +x/-x faces, 32x48 on the others) and an untextured
@@ -2147,6 +2473,8 @@ def main() -> int:
     del r, state
     app_phase(torch, gpu)
     app_restir_phase(torch, gpu)
+    app_mesh_phase(torch, gpu)
+    sharding_phase(torch, dev, vol, cfg, gpu)
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}))

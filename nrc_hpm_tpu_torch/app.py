@@ -14,14 +14,21 @@ Port of ``nrc_hpm_tpu/app.py``, the same flags, defaults and frame loop:
 ``--renderer restir`` runs the ReSTIR renderer instead (its temporal
 history cleared on a camera cut; ``restir.exr`` on export).  It runs on
 the card (``--platform cuda``, the default) and fails where there is
-none; ``--platform cpu`` runs the plain versions on the CPU.  Sharding
-(``--mesh N`` with N > 0) is not ported and raises
-``NotImplementedError``.
+none; ``--platform cpu`` runs the plain versions on the CPU.
+
+``--mesh N`` (N > 0) renders the NRC frames with ``ShardedNrcRenderer``
+over a process group of N ranks (``parallel.sharding.make_group``): one
+process per rank, started by ``torchrun --nproc-per-node N -m
+nrc_hpm_tpu_torch.app --mesh N ...`` (``--mesh 1`` also runs alone).
+Every rank runs the frame loop, the golden compares and the export,
+which gather the image; rank 0 alone runs the MC and ReSTIR renderers,
+prints, and writes the logs, EXRs and checkpoint.  ``--profile`` is
+skipped under a mesh, as the JAX app skips it.
 
 Usage:
   python -m nrc_hpm_tpu_torch.app [17 positional args] [--frames N]
       [--width W] [--height H] [--renderer nrc|mc|both|restir]
-      [--benchmark-every K] [--platform cuda|cpu] [--out DIR]
+      [--benchmark-every K] [--platform cuda|cpu] [--mesh N] [--out DIR]
       [--checkpoint PATH] [--load-checkpoint PATH] [--export-exr]
 """
 
@@ -51,8 +58,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "(the reference benchmarks every frame)")
     p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard over N devices (0 = single device; "
-                        "not ported)")
+                   help="shard the NRC frames over a process group of N "
+                        "ranks (0 = single device)")
     p.add_argument("--out", default=None, help="output directory")
     p.add_argument("--checkpoint", default=None,
                    help="save the trained cache state here on exit")
@@ -127,22 +134,43 @@ def _config(args):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharding is not ported (ROADMAP.md queue 1, item 5)")
 
+    import torch
+    import torch.distributed as dist
+
+    device = torch.device(args.platform)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the app runs on the card; pass "
+                           "--platform cpu for a run on the CPU")
+    if not args.mesh:
+        return _run(args, device, None)
+    from .parallel.sharding import rank_device, make_group
+    device = rank_device(device)
+    owns_group = not dist.is_initialized()
+    group = make_group(args.mesh, device)
+    try:
+        return _run(args, device, group)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _run(args, device, group) -> int:
+    """The frame loop on ``device``; under a mesh on this process's rank
+    of ``group``."""
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from .camera import Camera
     from .reference import GoldenReference, _renderer_image
     from .renderer import McRenderer, NrcRenderer, reset_accumulation
     from .utils.metrics import RunLogger
 
-    device = torch.device(args.platform)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the app runs on the card; pass "
-                           "--platform cpu for a run on the CPU")
+    # under a mesh every rank renders its rows and joins the collectives;
+    # rank 0 alone runs the unsharded renderers, prints and writes
+    lead = group is None or dist.get_rank(group) == 0
+    say = print if lead else (lambda *a, **k: None)
 
     def sync():
         if device.type == "cuda":
@@ -152,7 +180,9 @@ def main(argv=None) -> int:
     out_dir = args.out or os.path.join("output_torch", cfg.name())
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    print(f"device: {name}; output: {out_dir}")
+    mesh = "" if group is None else \
+        f"; mesh of {dist.get_world_size(group)} ranks"
+    say(f"device: {name}{mesh}; output: {out_dir}")
 
     aspect = cfg.render_width / cfg.render_height
     cam = Camera.reference_camera(aspect=aspect, device=device)
@@ -167,35 +197,40 @@ def main(argv=None) -> int:
     try:
         golden = GoldenReference.load(cfg.scene.id, device=device)
     except FileNotFoundError:
-        print(f"no golden image for scene {cfg.scene.id}; "
-              "comparisons disabled")
+        say(f"no golden image for scene {cfg.scene.id}; "
+            "comparisons disabled")
 
     # renderers -----------------------------------------------------------
     nrc_renderer = nrc_state = None
     mc_renderer = mc_state = None
     if args.renderer in ("nrc", "both"):
-        nrc_renderer = NrcRenderer(cfg, device=device)
+        if group is not None:
+            from .parallel.sharding import ShardedNrcRenderer
+            nrc_renderer = ShardedNrcRenderer(cfg, group=group,
+                                              device=device)
+        else:
+            nrc_renderer = NrcRenderer(cfg, device=device)
         nrc_state = nrc_renderer.init_state(0)
         if args.load_checkpoint:
             from .utils.checkpoint import load_pytree
             nrc_state = dataclasses.replace(
                 nrc_state, nrc=load_pytree(args.load_checkpoint,
                                            nrc_state.nrc, device=device))
-            print(f"loaded cache checkpoint {args.load_checkpoint}")
-    if args.renderer in ("mc", "both"):
+            say(f"loaded cache checkpoint {args.load_checkpoint}")
+    if args.renderer in ("mc", "both") and lead:
         mc_renderer = McRenderer(cfg, device=device)
         mc_state = mc_renderer.init_state(0)
     restir_renderer = restir_state = None
-    if args.renderer == "restir":
+    if args.renderer == "restir" and lead:
         from .models.restir import RestirRenderer
         restir_renderer = RestirRenderer(cfg, device=device)
         restir_state = restir_renderer.init_state(0)
 
     # opened only now, so a run that fails to load its scene leaves the
     # logs of an earlier run as they were
-    logger = RunLogger(out_dir)
+    logger = RunLogger(out_dir) if lead else None
 
-    if args.profile and nrc_renderer is not None:
+    if args.profile and nrc_renderer is not None and group is None:
         from .profiler import format_stage_report, profile_nrc_frame
         stages = profile_nrc_frame(nrc_renderer, nrc_state, cam)
         print(format_stage_report(stages), flush=True)
@@ -259,8 +294,9 @@ def main(argv=None) -> int:
                     nrc_cmp = golden.compare_nrc(nrc_renderer, nrc_state)
                 if mc_renderer is not None:
                     mc_cmp = golden.compare_mc(mc_renderer, mc_state)
-        logger.frame(frame, frame_ms, loss=loss, nrc_cmp=nrc_cmp,
-                     mc_cmp=mc_cmp)
+        if logger is not None:
+            logger.frame(frame, frame_ms, loss=loss, nrc_cmp=nrc_cmp,
+                         mc_cmp=mc_cmp)
 
         msg = f"frame {frame}: {frame_ms:.1f} ms"
         if loss is not None:
@@ -270,17 +306,17 @@ def main(argv=None) -> int:
                     f"{nrc_cmp.rel_bias:+.4f} cv {nrc_cmp.cv:.3f}")
         if mc_cmp is not None:
             msg += f", mc mse {mc_cmp.mse:.5f}"
-        print(msg, flush=True)
+        say(msg, flush=True)
 
-        # NaN/Inf loss abort
+        # NaN/Inf loss abort (the loss is replicated: every rank stops)
         if loss is not None and not math.isfinite(loss):
-            print("Loss is NaN or Inf — aborting")
+            say("Loss is NaN or Inf — aborting")
             break
 
     total = time.time() - t_start
     if frame >= 0 and total > 0:
-        print(f"{frame + 1} frames in {total:.1f}s "
-              f"({(frame + 1) / total:.2f} fps)")
+        say(f"{frame + 1} frames in {total:.1f}s "
+            f"({(frame + 1) / total:.2f} fps)")
 
     if args.export_exr:
         from .utils.exr import write_exr
@@ -289,21 +325,26 @@ def main(argv=None) -> int:
             return np.asarray(img.detach().cpu().numpy(), np.float32)
 
         if nrc_state is not None:
-            write_exr(os.path.join(out_dir, "nrc.exr"),
-                      host(_renderer_image(nrc_renderer, nrc_state)))
-        if mc_state is not None:
-            write_exr(os.path.join(out_dir, "mc.exr"), host(mc_state.image))
-        if restir_state is not None:
-            write_exr(os.path.join(out_dir, "restir.exr"),
-                      host(restir_state.image))
-        print(f"exported EXRs to {out_dir}")
+            # gathered on every rank
+            nrc_img = host(_renderer_image(nrc_renderer, nrc_state))
+        if lead:
+            if nrc_state is not None:
+                write_exr(os.path.join(out_dir, "nrc.exr"), nrc_img)
+            if mc_state is not None:
+                write_exr(os.path.join(out_dir, "mc.exr"),
+                          host(mc_state.image))
+            if restir_state is not None:
+                write_exr(os.path.join(out_dir, "restir.exr"),
+                          host(restir_state.image))
+            print(f"exported EXRs to {out_dir}")
 
-    if args.checkpoint and nrc_state is not None:
+    if args.checkpoint and nrc_state is not None and lead:
         from .utils.checkpoint import save_pytree
         save_pytree(args.checkpoint, nrc_state.nrc)
         print(f"saved cache checkpoint {args.checkpoint}")
 
-    logger.close()
+    if logger is not None:
+        logger.close()
     return 0
 
 

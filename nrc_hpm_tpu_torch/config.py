@@ -10,7 +10,7 @@ the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +89,17 @@ class RestirConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Sharding of the NRC frame (``parallel/sharding.py``): ``rays`` is
+    the number of ranks the image rows are split over, the world size of
+    the process group (None: the group there is); ``axis_name`` is the
+    JAX package's mesh-axis name, kept for its configurations."""
+
+    rays: Optional[int] = None
+    axis_name: str = "rays"
+
+
+@dataclasses.dataclass(frozen=True)
 class AppConfig:
     # NN training
     loss_fn: str = "RelativeL2Luminance"
@@ -113,6 +124,7 @@ class AppConfig:
     render_width: int = 1920
     render_height: int = 1080
     restir: RestirConfig = dataclasses.field(default_factory=RestirConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     # cap on tracking events per track call (the reference caps its loops
     # at 128) and on primary bounces
     max_track_steps: int = 128

@@ -28,6 +28,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ...config import AppConfig
 from ...ops import fused_encode_mlp, fused_mlp
@@ -178,6 +179,7 @@ class NeuralRadianceCache:
         self.width = cfg.nn_width
         self.depth = cfg.nn_depth
         self.loss_fn = make_loss_fn(cfg.loss_fn)
+        self.loss_per_sample = make_loss_fn_per_sample(cfg.loss_fn)
         opt = cfg.optimizer.lower()
         if opt not in ("adam", "sgd"):
             raise ValueError(f"unsupported optimizer {cfg.optimizer!r}")
@@ -245,25 +247,46 @@ class NeuralRadianceCache:
 
     # -- training -----------------------------------------------------------
     def loss_and_grads(self, params: dict, x5: torch.Tensor,
-                       target: torch.Tensor):
-        """(loss, gradient tree) of one batch."""
+                       target: torch.Tensor, weight=None, inv_tot=None):
+        """(loss, gradient tree) of one batch: the mean loss, or with a
+        (B,) ``weight`` the weighted sum times ``inv_tot``."""
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         it = iter(leaves)
         live = tree_map(lambda _: next(it), params)
         with torch.enable_grad():
-            loss = self.loss_fn(self.apply(live, x5,
-                                           train_fast=self.train_fast),
-                                target)
+            pred = self.apply(live, x5, train_fast=self.train_fast)
+            if weight is None:
+                loss = self.loss_fn(pred, target)
+            else:
+                loss = torch.sum(self.loss_per_sample(pred, target)
+                                 * weight) * inv_tot
             grads = torch.autograd.grad(loss, leaves)
         it = iter(grads)
         return loss.detach(), tree_map(lambda _: next(it), params)
 
     def train_step(self, state: NrcState, x5: torch.Tensor,
-                   target: torch.Tensor) -> NrcState:
+                   target: torch.Tensor, group=None,
+                   weight: torch.Tensor | None = None) -> NrcState:
         """One optimizer step on one (batch, 5)/(batch, 3) training
-        batch, then the EMA."""
-        loss, grads = self.loss_and_grads(state.params, x5, target)
+        batch, then the EMA.  With a ``torch.distributed`` process
+        ``group`` (the JAX package's ``axis_name``) the gradients and the
+        loss are averaged over its ranks, which then apply the same
+        update.  ``weight`` (B,) masks the padding lanes of uneven
+        shards: the loss is the weighted sum over the weight summed over
+        the group, and the gradients are summed, so the update is the
+        single-device one over the lanes of weight > 0."""
+        inv_tot = None
+        if weight is not None:
+            tot = torch.sum(weight)
+            if group is not None:
+                dist.all_reduce(tot, group=group)
+            inv_tot = 1.0 / torch.clamp(tot, min=1.0)
+        loss, grads = self.loss_and_grads(state.params, x5, target, weight,
+                                          inv_tot)
+        if group is not None:
+            loss, grads = _all_reduce(loss, grads, group,
+                                      mean=weight is None)
         update = adam_update if self.optimizer == "adam" else sgd_update
         params, opt_state = update(grads, state.opt_state, state.params,
                                    self.cfg.learning_rate)
@@ -273,12 +296,28 @@ class NeuralRadianceCache:
                         loss=loss, step=state.step + 1)
 
     def train_frame(self, state: NrcState, x5: torch.Tensor,
-                    target: torch.Tensor) -> NrcState:
+                    target: torch.Tensor, group=None,
+                    weight: torch.Tensor | None = None) -> NrcState:
         """``train_batch_count`` sequential steps over equal slices of the
-        frame's training set."""
+        frame's training set (and of ``weight``)."""
         n = self.cfg.train_batch_count
         bs = x5.shape[0] // n
         for i in range(n):
             sl = slice(i * bs, (i + 1) * bs)
-            state = self.train_step(state, x5[sl], target[sl])
+            state = self.train_step(state, x5[sl], target[sl], group,
+                                    None if weight is None else weight[sl])
         return state
+
+
+def _all_reduce(loss: torch.Tensor, grads: dict, group, mean: bool):
+    """The loss and the gradient tree summed over ``group`` in one flat
+    all-reduce (every rank receives the same bits), divided by the
+    group's size with ``mean`` (JAX's pmean; else its psum)."""
+    leaves = tree_leaves(grads)
+    flat = torch.cat([g.reshape(-1) for g in leaves] + [loss.reshape(1)])
+    dist.all_reduce(flat, group=group)
+    if mean:
+        flat = flat / dist.get_world_size(group)
+    parts = iter(flat.split([g.numel() for g in leaves] + [1]))
+    grads = tree_map(lambda g: next(parts).view_as(g), grads)
+    return next(parts).reshape(()), grads

@@ -6,7 +6,8 @@ source, the shared ``csrc/*.cuh`` headers and the flags, at the first call
 that needs it.  Importing this module
 needs no ``nvcc``; asking for a library without one raises.  The nvcc
 output (with ``-Xptxas -v``: registers, shared memory, spills) is kept
-beside the library as ``.log``.
+beside the library as ``.log``.  ``compile_shared`` also builds the host
+C++ VDB decoder (``utils/native.py``) the same way.
 """
 
 from __future__ import annotations
@@ -37,21 +38,30 @@ def nvcc_path() -> str:
 
 def library_path(name: str, extra_flags: tuple = ()) -> Path:
     """Build ``csrc/<name>.cu`` if its hashed library is missing."""
-    src = CSRC / f"{name}.cu"
-    flags = FLAGS + tuple(extra_flags)
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(flags).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}-{digest}.so"
+    return compile_shared(CSRC / f"{name}.cu", nvcc_path(),
+                          FLAGS + tuple(extra_flags), salt=headers)
+
+
+def compile_shared(src: Path, compiler: str, flags: tuple, libs: tuple = (),
+                   salt: bytes = b"") -> Path:
+    """``_build/lib<stem>-<hash>.so`` of ``src``, compiled by ``compiler``
+    with ``flags`` (linked against ``libs``) unless it exists, keyed by a
+    hash of the source, ``salt`` and the flags.  The compiler's output is
+    kept beside it as ``.log``; a failed build raises."""
+    digest = hashlib.sha256(src.read_bytes() + salt + " ".join(
+        flags + libs).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"lib{src.stem}-{digest}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    res = subprocess.run([nvcc_path(), *flags, "-o", str(tmp), str(src)],
-                         capture_output=True, text=True)
+    res = subprocess.run([compiler, *flags, "-o", str(tmp), str(src),
+                          *libs], capture_output=True, text=True)
     so.with_suffix(".log").write_text(res.stdout + res.stderr)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed for "
+                           f"{src.name}:\n{res.stderr}")
     os.replace(tmp, so)
     return so
 

@@ -225,6 +225,20 @@ def infer_filtered(cache: NeuralRadianceCache, nrc_state: NrcState, x5,
     return out
 
 
+def composite_frame(prim: dict, nrc_rgb, height: int, width: int):
+    """The (height, width, 4) frame: the primary color plus, on scattered
+    pixels, the clamped cache prediction ``nrc_rgb`` (None: left out)
+    times the throughput; alpha 1."""
+    color = prim["primary_color"].reshape(height, width, 4)
+    out_rgb = color[..., :3]
+    if nrc_rgb is not None:
+        use = prim["did_scatter"].reshape(height, width, 1)
+        add = torch.clamp(nrc_rgb.reshape(height, width, 3),
+                          min=0.0) * color[..., 3:]
+        out_rgb = out_rgb + torch.where(use, add, 0.0)
+    return torch.cat([out_rgb, torch.ones_like(out_rgb[..., :1])], dim=-1)
+
+
 @dataclasses.dataclass
 class NrcRenderState:
     image: torch.Tensor          # (H, W, 4) blended output
@@ -333,18 +347,9 @@ class NrcRenderer:
                               self.cfg.infer_filter)
 
     def composite(self, state: NrcRenderState, prim: dict, nrc_rgb):
-        """The primary color plus, on scattered pixels, the clamped cache
-        prediction ``nrc_rgb`` (None: left out) times the throughput,
-        blended into ``state.image``.  Returns (image, blend_index)."""
-        H, W = self.height, self.width
-        color = prim["primary_color"].reshape(H, W, 4)
-        out_rgb = color[..., :3]
-        if nrc_rgb is not None:
-            use = prim["did_scatter"].reshape(H, W, 1)
-            add = torch.clamp(nrc_rgb.reshape(H, W, 3),
-                              min=0.0) * color[..., 3:]
-            out_rgb = out_rgb + torch.where(use, add, 0.0)
-        out = torch.cat([out_rgb, torch.ones_like(out_rgb[..., :1])], dim=-1)
+        """``composite_frame`` blended into ``state.image``.  Returns
+        (image, blend_index)."""
+        out = composite_frame(prim, nrc_rgb, self.height, self.width)
         return _blend(state, out, self.blend)
 
     def train_rays(self, ring: RingBuffer, prim: dict):
@@ -364,13 +369,11 @@ class NrcRenderer:
         return scat, t_ro, t_rd, ring
 
     def train_targets(self, nrc: NrcState, t_ro, t_rd, frame_random):
-        """``train_spp`` trace_fixed paths per train ray, averaged and
-        clamped.  The train RNG streams start from the screen UVs of the
-        train grid's corner subwindow (the reference does the same).
-        Divisions by a constant multiply by its float32 reciprocal, as the
-        compiled JAX frame does (XLA rewrites them so), which keeps the
-        seeds' float bits equal."""
-        cfg = self.cfg
+        """``path_targets`` of the train rays.  The train RNG streams
+        start from the screen UVs of the train grid's corner subwindow
+        (the reference does the same).  Divisions by a constant multiply
+        by its float32 reciprocal, as the compiled JAX frame does (XLA
+        rewrites them so), which keeps the seeds' float bits equal."""
         dev = self.device
         tx = torch.arange(self.train_w, dtype=torch.float32,
                           device=dev) * (1.0 / self.width)
@@ -379,24 +382,8 @@ class NrcRenderer:
         uv = torch.stack([tx[None, :].expand(self.train_h, -1),
                           ty[:, None].expand(-1, self.train_w)], dim=-1)
         t_state = rng.init_state(uv.reshape(-1, 2), frame_random)
-        target = torch.zeros_like(t_ro)
-        for _ in range(cfg.train_spp):
-            res = trace_fixed(t_state, self.vol, self.lights, self.params,
-                              t_ro, t_rd, cfg.train_ray_length)
-            spp_rad = res["radiance"]
-            if cfg.train_cache_bootstrap:
-                # surviving paths end in the pre-train cache, scaled by
-                # their throughput
-                boot_x5 = pack_nrc_inputs(self.vol, res["terminal_pos"],
-                                          res["terminal_dir"])
-                boot = torch.clamp(self.cache.infer(nrc, boot_x5), min=0.0)
-                spp_rad = spp_rad + torch.where(
-                    res["alive"][:, None], boot * res["throughput"][:, None],
-                    0.0)
-            target = target + spp_rad
-            t_state = res["state"]
-        target = target * (1.0 / cfg.train_spp)
-        return torch.clamp(target, max=cfg.train_target_clamp)
+        return path_targets(self.cache, nrc, self.vol, self.lights,
+                            self.params, self.cfg, t_state, t_ro, t_rd)
 
     def train_set(self, nrc: NrcState, ring: RingBuffer, prim: dict,
                   frame_random) -> tuple:
@@ -414,6 +401,31 @@ class NrcRenderer:
         ring, train_x5, target = self.train_set(nrc, ring, prim,
                                                 frame_random)
         return ring, self.cache.train_frame(nrc, train_x5, target)
+
+
+def path_targets(cache: NeuralRadianceCache, nrc: NrcState, vol: Volume,
+                 lights: Lights, params: TraceParams, cfg: AppConfig,
+                 t_state, t_ro, t_rd) -> torch.Tensor:
+    """``train_spp`` trace_fixed paths per train ray from the RNG states
+    ``t_state``, averaged and clamped to ``train_target_clamp``."""
+    target = torch.zeros_like(t_ro)
+    for _ in range(cfg.train_spp):
+        res = trace_fixed(t_state, vol, lights, params, t_ro, t_rd,
+                          cfg.train_ray_length)
+        spp_rad = res["radiance"]
+        if cfg.train_cache_bootstrap:
+            # surviving paths end in the pre-train cache, scaled by their
+            # throughput
+            boot_x5 = pack_nrc_inputs(vol, res["terminal_pos"],
+                                      res["terminal_dir"])
+            boot = torch.clamp(cache.infer(nrc, boot_x5), min=0.0)
+            spp_rad = spp_rad + torch.where(
+                res["alive"][:, None], boot * res["throughput"][:, None],
+                0.0)
+        target = target + spp_rad
+        t_state = res["state"]
+    target = target * (1.0 / cfg.train_spp)
+    return torch.clamp(target, max=cfg.train_target_clamp)
 
 
 def reset_accumulation(state):

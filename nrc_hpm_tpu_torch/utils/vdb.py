@@ -15,8 +15,10 @@ for ``Tree_float_5_4_3`` grids directly from the file format:
 
 Supported: file versions 220..224 (blosc-compressed files are rejected),
 single- or multi-grid files, root tiles, internal-node active tiles, leaf
-buffers.  The JAX package's native decoder (``native/nrcio.cpp``) is not
-ported: ``load_vdb`` always parses.
+buffers.  ``load_vdb`` reads through the native decoder
+(``utils/native.py``, the port's copy of the JAX package's
+``native/nrcio.cpp``) first, as the JAX package does where its library
+is built, and parses here what the decoder refuses.
 """
 
 from __future__ import annotations
@@ -355,11 +357,31 @@ def _read_header(f: BinaryIO):
     return version, file_meta, descriptors
 
 
-def load_vdb(path: str, grid_name: Optional[str] = None) -> VdbGrid:
+def load_vdb(path: str, grid_name: Optional[str] = None,
+             prefer_native: bool = True) -> VdbGrid:
     """Load the first float grid (or the named grid) from ``path`` as a dense
     array over its ``file_bbox`` metadata (or, without it, over the union
     of its leaf and tile boxes), matching the reference's
-    vk::Texture3D::FromVDB."""
+    vk::Texture3D::FromVDB.
+
+    With ``prefer_native`` and no ``grid_name`` the native decoder reads
+    the first ``Tree_float_5_4_3`` grid (the same data bitwise; as in the
+    JAX package, its grid is named "density" and carries no metadata),
+    unless ``NRC_HPM_NATIVE=0``; a file it refuses (blosc, another tree
+    type, no bbox metadata, not a VDB) is parsed here.  A decoder that
+    fails to build raises."""
+    if prefer_native and grid_name is None:
+        from . import native
+        if native.enabled():
+            try:
+                arr, bbox_min, voxel = native.vdb_load_native(path)
+            except ValueError:
+                pass  # parsed below
+            else:
+                bbox_max = bbox_min + np.array(arr.shape, np.int32) - 1
+                return VdbGrid(name="density", metadata={},
+                               bbox_min=bbox_min, bbox_max=bbox_max,
+                               data=arr, voxel_size=voxel)
     with open(path, "rb") as f:
         version, _file_meta, descriptors = _read_header(f)
         chosen = None

@@ -7,7 +7,9 @@ same tree as numpy arrays (for example ``jax.tree.map(np.asarray,
 state.ema_params)`` or a loaded checkpoint) and returns the port's
 float32 tensors in the same layout.  ``state_from_jax`` takes a whole
 ``NrcState`` mapped to numpy (params, ema_params, the optax state, loss,
-step) and ``ring_from_jax`` a ``RingBuffer`` mapped to numpy.
+step) and ``ring_from_jax`` a ``RingBuffer`` mapped to numpy;
+``sharded_state_from_jax`` takes the JAX ``ShardedNrcRenderer``'s global
+state mapped to numpy and returns one rank's share of it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from .models.nrc.cache import NrcState
+from .renderer import NrcRenderState
 from .ring_buffer import RingBuffer
 
 
@@ -52,3 +55,23 @@ def ring_from_jax(ring_np, device="cuda") -> RingBuffer:
     return RingBuffer(data=_t(ring_np.data, device),
                       head=_t(ring_np.head, device, np.int32),
                       tail=_t(ring_np.tail, device, np.int32))
+
+
+def sharded_state_from_jax(state_np, rank: int, n: int, device="cuda"
+                           ) -> NrcRenderState:
+    """Rank ``rank`` of ``n``'s ``NrcRenderState`` from the JAX sharded
+    renderer's global state (leaves as numpy arrays): its rows of the
+    (pad_h, W, 4) image, its block of the (n * cap, 6) ring with its
+    entries of the (n,) head and tail, the replicated cache and key."""
+    s = state_np
+    rows = s.image.shape[0] // n
+    cap = s.ring.data.shape[0] // n
+    ring = RingBuffer(data=_t(s.ring.data[rank * cap:(rank + 1) * cap],
+                              device),
+                      head=_t(s.ring.head[rank], device, np.int32),
+                      tail=_t(s.ring.tail[rank], device, np.int32))
+    return NrcRenderState(
+        image=_t(s.image[rank * rows:(rank + 1) * rows], device),
+        blend_index=int(s.blend_index), ring=ring,
+        nrc=state_from_jax(s.nrc, device),
+        key=torch.as_tensor(np.asarray(s.key, np.int64)))

@@ -13,8 +13,11 @@ Checked: ``log.txt`` and ``metrics.jsonl`` have the JAX app's format
 the first frames' loss within 1e-4 relative and the exported MC image
 under the frame tests' rule (did-scatter agrees on >= 99% of pixels, the
 image within 1e-3 there), as tests/test_torch_train.py and
-test_torch_mc_renderer.py hold them; without ``--platform cpu`` the app
-needs the card; ``--mesh`` refuses.  The port's other runs are in
+test_torch_mc_renderer.py hold them; the port's run with ``--mesh 1``
+(the sharded renderer on a one-rank group) equals its run without,
+bitwise, and with ``--mesh 2`` on two spawned ranks agrees with it;
+without ``--platform cpu`` the app needs the card; ``--mesh 2`` without
+a group of two ranks refuses.  The port's other runs are in
 test_torch_app_runs.py, the ``--renderer restir`` runs in
 test_torch_app_restir.py."""
 
@@ -32,6 +35,7 @@ from nrc_hpm_tpu_torch.config import AppConfig
 from nrc_hpm_tpu_torch.utils.exr import read_exr_rgba
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_sharding_ranks as tsr  # noqa: E402
 import torch_vdb_writer as vw  # noqa: E402
 
 W, H = 48, 27
@@ -95,9 +99,14 @@ def runs(tmp_path_factory):
         make_scene()
         assert japp.main(argv + ["--out", "jax"]) == 0
         assert tapp.main(argv + ["--out", "port"]) == 0
+        assert tapp.main(argv + ["--mesh", "1", "--out", "mesh1"]) == 0
 
     run_in(root, both)
-    return {k: str(root / k) for k in ("jax", "port")}
+    # two ranks, each its own process, each writing to --out rank<k>
+    assert tsr.spawn(2, str(tmp_path_factory.mktemp("mesh2")), tsr.app_main,
+                     str(root), argv + ["--mesh", "2"]) == [0, 0]
+    return {k: str(root / k) for k in ("jax", "port", "mesh1", "rank0",
+                                       "rank1")}
 
 
 def _keys(rec):
@@ -139,8 +148,50 @@ def test_first_frames_match_jax(runs):
     assert nrc.shape == (H, W, 4) and np.isfinite(nrc).all()
 
 
+def test_mesh_one_runs_like_the_single_device_app(runs):
+    """``--mesh 1``: the sharded renderer on a one-rank group of the
+    app's own process, which it tears down after; the same records, and
+    the losses and the exported images equal to the run without a
+    mesh's."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    t, m = _records(runs["port"]), _records(runs["mesh1"])
+    assert [_keys(r) for r in m] == [_keys(r) for r in t]
+    assert [r["loss"] for r in m] == [r["loss"] for r in t]
+    assert m[0]["nrc"] == t[0]["nrc"] and m[0]["mc"] == t[0]["mc"]
+    for name in ("nrc.exr", "mc.exr"):
+        a = read_exr_rgba(os.path.join(runs["mesh1"], name))
+        b = read_exr_rgba(os.path.join(runs["port"], name))
+        assert a.shape == (H, W, 4) and a.tobytes() == b.tobytes(), name
+
+
+def test_mesh_two_runs_on_two_ranks(runs):
+    """``--mesh 2`` on a group of two ranks (processes spawned here): rank
+    0 alone writes, the records as the single-device run's, the first
+    frame's loss (the same cache and targets, summed over two ranks)
+    within 1e-4 relative and the exported NRC image under the frame rule
+    (did-scatter on >= 99% of the pixels, within 1e-3 there); the MC
+    image is rank 0's single-device MC frame."""
+    assert not os.path.exists(runs["rank1"])
+    t, m = _records(runs["port"]), _records(runs["rank0"])
+    assert [_keys(r) for r in m] == [_keys(r) for r in t]
+    np.testing.assert_allclose(m[0]["loss"], t[0]["loss"], rtol=1e-4)
+    assert m[0]["mc"] == t[0]["mc"]
+    a = read_exr_rgba(os.path.join(runs["rank0"], "nrc.exr"))
+    b = read_exr_rgba(os.path.join(runs["port"], "nrc.exr"))
+    assert a.shape == b.shape == (H, W, 4)
+    scat = [np.abs(img[..., :3] - 0.1).max(-1) > 1e-6 for img in (a, b)]
+    agree = scat[0] == scat[1]
+    assert agree.mean() >= 0.99
+    assert np.abs(a - b).max(-1)[agree].max() <= 1e-3
+    for name in ("mc.exr", "log.txt"):
+        assert os.path.exists(os.path.join(runs["rank0"], name))
+
+
 def test_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # no process group of 2 ranks to join: the error names torchrun
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         tapp.main(ARGV + FLAGS + ["--mesh", "2"])
     assert tapp.build_argparser().parse_args([]).platform == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

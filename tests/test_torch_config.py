@@ -90,12 +90,12 @@ SHARED_KW = dict(
     max_track_steps=64, max_primary_bounces=32, mc_path_length=64,
     mlp_dtype="float32", trace_chunks=4, infer_filter=False, compact=True,
     hash_train_fast=False, env_fixed16=True, train_target_clamp=4.0,
-    train_cache_bootstrap=True)
+    train_cache_bootstrap=True, mesh=dict(rays=2, axis_name="x"))
 NESTED = dict(encoding="EncodingConfig", scene="SceneConfig",
-              restir="RestirConfig")
-# the JAX fields the port leaves out: sharding waits for its slice, and
-# the static TPU compaction capacities have nothing to port
-NOT_PORTED = {"mesh", "infer_compact", "infer_compact_frac"}
+              restir="RestirConfig", mesh="MeshConfig")
+# the JAX fields the port leaves out: the static TPU compaction capacities
+# have nothing to port
+NOT_PORTED = {"infer_compact", "infer_compact_frac"}
 
 
 def _build(mod):
@@ -121,3 +121,4 @@ def test_every_shared_field_builds_alike():
     assert port.train_subset() == ref.train_subset()
     assert port.train_ring_size == ref.train_ring_size
     _same_fields(tcfg.RestirConfig(), jcfg.RestirConfig())
+    _same_fields(tcfg.MeshConfig(), jcfg.MeshConfig())

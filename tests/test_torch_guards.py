@@ -39,7 +39,10 @@ def test_port_imports_no_jax():
             "nrc_hpm_tpu_torch.utils.checkpoint, "
             "nrc_hpm_tpu_torch.models.restir, nrc_hpm_tpu_torch.models.mesh, "
             "nrc_hpm_tpu_torch.models.raster, nrc_hpm_tpu_torch.utils.png, "
-            "nrc_hpm_tpu_torch.utils.texture\n"
+            "nrc_hpm_tpu_torch.utils.texture, "
+            "nrc_hpm_tpu_torch.parallel.sharding, "
+            "nrc_hpm_tpu_torch.parallel.multihost, "
+            "nrc_hpm_tpu_torch.utils.native\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'nrc_hpm_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -83,6 +86,7 @@ def _entry_points():
     from nrc_hpm_tpu_torch.models.nrc.cache import NeuralRadianceCache
     from nrc_hpm_tpu_torch.models.raster import ModelRenderer
     from nrc_hpm_tpu_torch.models.restir import RestirRenderer
+    from nrc_hpm_tpu_torch.parallel import multihost, sharding
     from nrc_hpm_tpu_torch.reference import GoldenReference, generate_golden
     from nrc_hpm_tpu_torch.utils import checkpoint
 
@@ -98,7 +102,8 @@ def _entry_points():
             checkpoint.load_pytree, renderer.NrcRenderer,
             renderer.McRenderer, generate_golden,
             camera_path.CameraPath.player, RestirRenderer, ModelRenderer,
-            flatten_model]
+            flatten_model, sharding.make_group, sharding.ShardedNrcRenderer,
+            weights.sharded_state_from_jax, multihost.initialize]
 
 
 @pytest.mark.parametrize("fn", _entry_points(),

@@ -1,4 +1,4 @@
-"""The port's VDB reader against the JAX package's Python parser, on files
+"""The port's VDB parser against the JAX package's Python parser, on files
 written by ``tests/torch_vdb_writer.py`` (the repository holds no .vdb):
 file versions 222 and 223; no compression, zip, and zip with the active
 mask (with no, one and two inactive values); with and without the bbox
@@ -9,6 +9,9 @@ bytes, so the dense data, bbox, voxel size, name and metadata must be
 equal, and the volumes built from them (the quantized grid and the macro
 tables) equal bit for bit.  The errors are the JAX parser's: a non-VDB
 file raises ValueError, blosc and unknown tree types NotImplementedError.
+The parsers are compared with ``prefer_native=False``; the other loads
+take ``load_vdb``'s default, the native decoder where it parses the file
+(held to both parsers in tests/test_torch_native.py).
 """
 
 import os
@@ -89,7 +92,7 @@ def _same_grid(t, j):
 @pytest.mark.parametrize("name", sorted(VARIANTS))
 def test_load_vdb_matches_jax(tmp_path, name):
     path = _write(tmp_path, name)
-    t = tload(path)
+    t = tload(path, prefer_native=False)
     _same_grid(t, jload(path, prefer_native=False))
     grids = VARIANTS[name][1]
     if grids[0].bbox_metadata and not grids[0].tiles:
