@@ -74,9 +74,12 @@ frames, timed, and one under torch.profiler (the kernels and the NCCL
 operations); then two gloo ranks, processes spawned on the one card
 (NCCL takes one rank per card), two online frames each: the first
 gathered frame held to the single-device frozen frame, the replicas
-bitwise equal.  It prints the card's name and power limit, one line
-per kernel, the frame and path times, a JSON kernel summary, and as its
-last line
+bitwise equal.  Last, the benchmark: ``bench_torch.run`` at 1080p with
+every section and the stage profile, two timed online frames (every
+measurement finite and positive, the record naming this card, each
+section's kernels launched and no other).  It prints the card's name and
+power limit, one line per kernel, the frame and path times, a JSON
+kernel summary, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises.  Without a CUDA device it exits with code 1.
 """
@@ -2413,6 +2416,56 @@ def options_phase(torch, dev, vol, gpu) -> None:
                           f"{kind} {size} {opts}")
 
 
+BENCH_FRAMES = 2               # bench_torch.run's timed online frames
+# the kernels each section of bench_torch.run must launch, and no other
+BENCH_SECTIONS = dict(online=ONLINE_KERNELS, frozen=FROZEN_KERNELS,
+                      inference=("fused_encode_mlp",), mc32=MC_KERNELS,
+                      nrc_online_2e12=ONLINE_KERNELS, stages=ONLINE_KERNELS)
+# the record's measurements, each finite and positive
+BENCH_KEYS = (
+    "compile_plus_first_frame_s", "nrc_online_ms_per_frame",
+    "nrc_online_rays_per_s", "nrc_loss", "nrc_online_2e19_ms_per_frame",
+    "nrc_online_2e19_rays_per_s", "nrc_frozen_ms_per_frame",
+    "nrc_frozen_rays_per_s", "nrc_infer_ms", "nrc_infer_samples_per_s",
+    "nrc_infer_fullbatch_ms", "nrc_infer_fullbatch_samples_per_s",
+    "mc32_ms_per_frame", "mc32_rays_per_s", "nrc_online_2e12_ms_per_frame",
+    "nrc_online_2e12_rays_per_s", "compile_cache_entries_before",
+    "device_count", "host_cores", "run_s", "process_cpu_s")
+
+
+def bench_phase(torch, gpu) -> None:
+    """``bench_torch.run`` at 1920x1080 with every section and the stage
+    profile, BENCH_FRAMES timed online frames: every measurement and stage
+    present, finite and positive, the record naming this card, the build
+    cache warm (``build`` made every library), each section's kernels
+    launched and no other."""
+    import bench_torch
+
+    t0 = time.perf_counter()
+    rec = bench_torch.run(frames=BENCH_FRAMES, profile=True)
+    print(f"bench record ({time.perf_counter() - t0:.1f} s, on {gpu}): "
+          f"{json.dumps(rec)}")
+    values = {k: rec.get(k) for k in BENCH_KEYS}
+    values.update({f"stages_ms.{k}": rec["stages_ms"].get(k)
+                   for k in STAGE_KEYS})
+    for key, v in values.items():
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            raise AssertionError(f"bench: {key} is {v}")
+    if (rec["device"], rec["gpu"]) != (torch.cuda.get_device_name(0), gpu):
+        raise AssertionError(f"bench: the record names {rec['device']} / "
+                             f"{rec['gpu']}")
+    if rec["compile_cache_status"] != "warm":
+        raise AssertionError(f"bench: build cache "
+                             f"{rec['compile_cache_status']}")
+    if set(rec["kernels_launched"]) != set(BENCH_SECTIONS):
+        raise AssertionError(f"bench: sections "
+                             f"{sorted(rec['kernels_launched'])}")
+    for section, kernels in BENCH_SECTIONS.items():
+        got = rec["kernels_launched"][section]
+        check_launches({k: got.get(k, 0) for k in wrappers()}, kernels,
+                       f"bench {section}")
+
+
 def main() -> int:
     import torch
 
@@ -2475,6 +2528,7 @@ def main() -> int:
     app_restir_phase(torch, gpu)
     app_mesh_phase(torch, gpu)
     sharding_phase(torch, dev, vol, cfg, gpu)
+    bench_phase(torch, gpu)
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}))

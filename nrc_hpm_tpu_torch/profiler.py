@@ -54,7 +54,7 @@ def profile_trace(log_dir: str = os.path.join("output_torch", "trace")):
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def _stage_ms(fn, device: torch.device, reps: int) -> float:
+def stage_ms(fn, device: torch.device, reps: int) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` calls after one
     warm-up: CUDA events on the card, the host clock on the CPU."""
     fn()
@@ -96,7 +96,7 @@ def profile_nrc_frame(renderer, state, camera,
     o, d = ro.expand(n, 3), rd.reshape(n, 3)
 
     def timed(fn):
-        return _stage_ms(fn, device, reps)
+        return stage_ms(fn, device, reps)
 
     def gen():
         return r.primary(rng_state, o, d)

@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
             "nrc_hpm_tpu_torch.utils.texture, "
             "nrc_hpm_tpu_torch.parallel.sharding, "
             "nrc_hpm_tpu_torch.parallel.multihost, "
-            "nrc_hpm_tpu_torch.utils.native\n"
+            "nrc_hpm_tpu_torch.utils.native, bench_torch\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'nrc_hpm_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
