@@ -60,6 +60,23 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_quality_torch_imports_no_jax():
+    """quality_torch.py, as bench_torch.py: no JAX, nothing of the JAX
+    package and nothing of experiments/ (it keeps its own copy of what it
+    needs from summarize_run.py)."""
+    code = ("import sys, quality_torch\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'nrc_hpm_tpu', 'experiments', "
+            "'summarize_run', 'interactive_point', 'restir_960')]\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = _run(["-c", code], ROOT, {"PYTHONPATH": ROOT})
+    assert res.returncode == 0, res.stdout + res.stderr
+    with open(os.path.join(ROOT, "quality_torch.py")) as f:
+        lines = [line for line in f if "experiments" in line]
+    assert not [line for line in lines
+                if "import" in line or "sys.path" in line], lines
+
+
 def test_chip_smoke_refuses_without_gpu(tmp_path):
     res = _run([os.path.join(ROOT, "chip_smoke.py")], ROOT,
                {"CUDA_VISIBLE_DEVICES": ""})

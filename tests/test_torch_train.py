@@ -373,9 +373,18 @@ def _scattered(img):
     return np.abs(img[..., :3] - 0.1).max(-1) > 1e-6   # scene 4 env = 0.1
 
 
-@pytest.mark.parametrize("bootstrap", [False, True])
-def test_two_train_frames_match(bootstrap):
-    jc, tc = _frame_cfgs(train_cache_bootstrap=bootstrap)
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(train_cache_bootstrap=False), id="False"),
+    pytest.param(dict(train_cache_bootstrap=True), id="True"),
+    pytest.param(dict(primary_ray_length=3), id="primary_ray_length3"),
+    pytest.param(dict(primary_ray_prob=0.5), id="primary_ray_prob0.5"),
+    pytest.param(dict(train_spp=2), id="train_spp2")])
+def test_two_train_frames_match(kw):
+    """Two online frames from one state, at the cache bootstrap's two
+    settings and at a longer primary path, a random primary continuation
+    and two train paths per pixel: beside the frame rule, every pixel
+    within 4e-4, the loss within 1e-5 relative and the key bitwise."""
+    jc, tc = _frame_cfgs(**kw)
     jv, tv = _volumes()
     jr = jren.NrcRenderer(jc, vol=jv)
     js = jr.init_state(0)
@@ -396,6 +405,11 @@ def test_two_train_frames_match(bootstrap):
         agree = _scattered(jimg) == _scattered(timg)
         assert agree.mean() >= 0.99, f"frame {frame}: did_scatter"
         assert np.abs(timg - jimg).max(-1)[agree].max() <= 1e-3
+        assert np.abs(timg - jimg).max() <= 4e-4
+        assert float(ts.nrc.loss) == pytest.approx(float(js.nrc.loss),
+                                                   rel=1e-5)
+        assert np.array_equal(ts.key.numpy(),
+                              np.asarray(js.key).astype(np.int64))
         assert ts.nrc.step == int(js.nrc.step) == 2 * (frame + 1)
         assert int(ts.ring.head) == int(js.ring.head)
         assert int(ts.ring.tail) == int(js.ring.tail)
