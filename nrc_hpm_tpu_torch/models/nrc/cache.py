@@ -110,6 +110,16 @@ def adam_init(params: dict) -> dict:
             "nu": tree_map(torch.zeros_like, params)}
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as XLA's and CUDA's
+    ``sqrt``: torch's vectorized CPU ``sqrt`` can be an ulp off (AVX-512
+    builds), so on the CPU it goes through float64, whose root rounds to
+    the correct float32 one."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
+
+
 def adam_update(grads: dict, opt_state: dict, params: dict, lr: float):
     """optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8): returns (params,
     opt_state)."""
@@ -122,7 +132,7 @@ def adam_update(grads: dict, opt_state: dict, params: dict, lr: float):
     bc2 = float(np.float32(1) - np.float32(_f32_pow(ADAM_B2, count)))
 
     def step(p, m, v):
-        u = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
+        u = (m / bc1) / (sqrt_f32(v / bc2) + ADAM_EPS)
         return p + (-lr) * u
 
     return (tree_map(step, params, mu, nu),

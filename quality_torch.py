@@ -3,10 +3,10 @@
 
 Run from the repository root:
 
-    python3 quality_torch.py {convergence,interactive,restir,all}
+    python3 quality_torch.py {convergence,interactive,restir,gates,scenes,all}
         [--seed N] [--frames N] [--golden-frames N]
 
-Three studies back the system's claims about image quality, each scored
+Five studies back the system's claims about image quality, each scored
 against a golden that ``golden()`` renders once with
 ``reference.generate_golden`` and caches under
 ``nrc_hpm_tpu_torch/_build/golden_cache/<key>/``, the key a hash of all
@@ -32,14 +32,34 @@ density grid and macro tables):
   spatial, 2 temporal slots, MIS weights on and off, 16 frames each)
   against 16 frames of 32-bounce MC, both scored by RGB MSE against a
   256-frame MC truth (seed 7) from the golden cache.
+- ``gates``: the reference's MC golden gates on every scene preset
+  (``experiments/make_goldens.py``, ``golden_gate_calibration.py``,
+  ``tests/test_goldens_all_scenes.py`` and ``test_long_budget_bias.py``).
+  Per preset a golden at 192x108 (256 frames of 64-bounce MC, seed 0),
+  then 10-frame 32-bounce MC renders at 96x54 with seeds 1-10 scored by
+  relBias, raw and with both images clamped at 20x the golden's
+  valid-pixel mean: the clamped values' mean is the preset's centre, tol
+  = max(3.5 sigma, 0.08).  The test run, at a seed outside the
+  calibration's (``11 + scene``), must read |raw relBias| < 1.5 and
+  |clamped - centre| < tol; the centres of
+  presets 0, 3, 4 and 5, whose radiance has no mass above the clamp,
+  must lie within tol of zero; presets 1 and 2 (a point light in the
+  medium) render 256 frames (seed ``scene + 17``), unclamped |relBias| <
+  0.05.
+- ``scenes``: ``convergence``'s protocol at 2^19 tables on scene 0 (with
+  the reference's loss and target clamp, with the L2 loss, with a clamp
+  of 16) and scene 5 (with and without ``env_fixed16``), each against
+  its own golden; NRC's tail MSE must lie below MC's on scene 0.
 
 The procedural 126x86x154 cloud of ``--seed`` stands in for the WDAS
-cloud.  The app runs in a directory of its own under
+cloud, at each scene preset's own density and phase g
+(``preset_scene``).  The app runs in a directory of its own under
 ``nrc_hpm_tpu_torch/_build/quality_run/``, which holds that cloud as a
 VDB at the scene's ``volume_path`` and the golden at
 ``reference/<scene>/0.exr``.  Each study writes
 ``output_torch/quality_<study>.json`` and prints its record on stdout;
-logs go to stderr.  A failing study fails the run.  Without a CUDA device
+logs go to stderr.  A failing study, or a gate it breaks, fails the run
+(its record is written first).  Without a CUDA device
 it exits with code 1 before any work; it never falls back to the CPU
 (the functions take ``device=`` for tests on the CPU).
 """
@@ -61,9 +81,10 @@ import torch
 
 from bench_torch import built_libraries, device_record, launched, log, sync
 from nrc_hpm_tpu_torch.camera import Camera
-from nrc_hpm_tpu_torch.config import AppConfig, RestirConfig
+from nrc_hpm_tpu_torch.config import AppConfig, RestirConfig, SceneConfig
 from nrc_hpm_tpu_torch.models.restir import RestirRenderer
-from nrc_hpm_tpu_torch.reference import GoldenReference, generate_golden
+from nrc_hpm_tpu_torch.reference import (GoldenReference, _downsample,
+                                         generate_golden)
 from nrc_hpm_tpu_torch.renderer import McRenderer, NrcRenderer
 from nrc_hpm_tpu_torch.utils.exr import read_exr_rgba
 from nrc_hpm_tpu_torch.utils.procedural import cloud_density
@@ -85,6 +106,42 @@ TIMED_FRAMES = 10             # timed frames of an interactive point
 RESTIR_SIZE = (960, 540)
 RESTIR_FRAMES = 16
 MC_SEED = 1                   # the seed of the MC frames ReSTIR is held to
+
+# the MC golden gates (tests/test_goldens_all_scenes.py and
+# experiments/golden_gate_calibration.py): test runs of GATE_FRAMES frames
+# of GATE_PATH bounces at GATE_SIZE, a golden of GATE_GOLDEN_SIZE
+PRESETS = tuple(range(6))
+GATE_SIZE = (96, 54)
+GATE_FRAMES = 10
+GATE_PATH = 32
+GATE_SEEDS = tuple(range(1, 11))
+GATE_GOLDEN_SIZE = (192, 108)
+# make_goldens.py's seed: apart from every test seed, so no test run
+# repeats the golden's first frames
+GATE_GOLDEN_SEED = 0
+GATE_CLIP = 20.0              # the clamp, times the golden's valid mean
+GATE_RAW = 1.5                # the bound on the unclamped relBias
+GATE_SIGMAS = 3.5             # tol = max(GATE_SIGMAS * sigma, GATE_TOL_MIN)
+GATE_TOL_MIN = 0.08
+# presets without radiance above the clamp: their centre lies at zero
+CENTRED = (0, 3, 4, 5)
+# the point-light presets and their long-budget run (test_long_budget_bias)
+LONG_PRESETS = (1, 2)
+LONG_SEED = 17                # a long run's seed: LONG_SEED + preset
+LONG_FRAMES = 256
+LONG_BOUND = 0.05
+
+# (label, scene preset, AppConfig fields) of the scenes study:
+# BASELINE.md's scene-0/5 runs and its scene-0 bias study
+SCENE_RUNS = (
+    ("scene0", 0, {}),
+    ("scene0_l2", 0, dict(loss_fn="L2")),
+    ("scene0_clamp16", 0, dict(train_target_clamp=16.0)),
+    ("scene5", 5, {}),
+    ("scene5_env_fixed16", 5, dict(env_fixed16=True)),
+)
+# the runs whose NRC tail MSE must lie below MC's
+SCENE_GATED = ("scene0",)
 
 # (tag, width, height, train batches, log2 train batch, train every,
 # log2 hash table): the interactive points
@@ -169,6 +226,19 @@ def golden(cfg: AppConfig, vol: Volume, width: int, height: int,
     path = golden_file(cfg, vol, width, height, frames, path_length, seed,
                        device)
     return GoldenReference(read_exr_rgba(path), device=device)
+
+
+def preset_scene(scene_id: int, density, cfg: AppConfig | None = None,
+                 device="cuda"):
+    """``cfg`` (``AppConfig()`` by default) at scene preset ``scene_id``,
+    and the volume of the density grid ``density`` at that preset's
+    density and phase g: a renderer given a volume never reads
+    ``cfg.scene.density`` itself."""
+    cfg = dataclasses.replace(cfg or AppConfig(),
+                              scene=SceneConfig.preset(scene_id))
+    vol = Volume.from_dense(density, cfg.scene.density, cfg.scene.volume_g,
+                            device=device)
+    return cfg, vol
 
 
 # ---- the summary of a run ---------------------------------------------------
@@ -294,17 +364,17 @@ def _cloud(density, seed):
     return cloud_density(seed=seed) if density is None else density
 
 
-def _golden_record(cfg, vol, size, frames, path_length, device) -> dict:
+def _golden_record(cfg, vol, size, frames, path_length, device,
+                   seed: int = TRUTH_SEED) -> dict:
     """Render (or find) the golden; its inputs, key, file, whether the
     cache held it and the seconds it took."""
     w, h = size
-    key = golden_key(cfg, vol, w, h, frames, path_length, TRUTH_SEED)
+    key = golden_key(cfg, vol, w, h, frames, path_length, seed)
     cached = golden_done(os.path.join(GOLDEN_CACHE, key, "0.exr"), frames)
     t0 = time.perf_counter()
-    path = golden_file(cfg, vol, w, h, frames, path_length, TRUTH_SEED,
-                       device)
+    path = golden_file(cfg, vol, w, h, frames, path_length, seed, device)
     return dict(width=w, height=h, frames=frames, path_length=path_length,
-                seed=TRUTH_SEED, key=key, file=path, cached=cached,
+                seed=seed, key=key, file=path, cached=cached,
                 seconds=time.perf_counter() - t0)
 
 
@@ -520,23 +590,211 @@ def restir(cfg: AppConfig | None = None, width: int = RESTIR_SIZE[0],
     return rec
 
 
-STUDIES = ("convergence", "interactive", "restir")
+# ---- the golden gates and the scene presets ---------------------------------
+
+def gate_band(values) -> dict:
+    """The gate of a preset from its clamped relBias values: their mean
+    (the centre), their spread (sigma, numpy's population std, as
+    golden_gate_calibration.py) and tol = max(GATE_SIGMAS * sigma,
+    GATE_TOL_MIN)."""
+    arr = np.asarray(values, np.float64)
+    centre, sigma = float(arr.mean()), float(arr.std())
+    return dict(centre=centre, sigma=sigma,
+                tol=max(GATE_SIGMAS * sigma, GATE_TOL_MIN))
+
+
+def gates(presets=PRESETS, cfg: AppConfig | None = None, size=GATE_SIZE,
+          frames: int = GATE_FRAMES, path_length: int = GATE_PATH,
+          seeds=GATE_SEEDS, golden_size=GATE_GOLDEN_SIZE,
+          golden_frames: int = GOLDEN_FRAMES,
+          golden_path: int = GOLDEN_PATH, long_frames: int = LONG_FRAMES, long_size=None, seed: int = 0,
+          density=None, device="cuda") -> dict:
+    """The reference's MC golden gates on each preset of ``presets``, each
+    on its own volume (``preset_scene``): a golden from the cache
+    (GATE_GOLDEN_SEED), ``frames``-frame MC renders of ``path_length``
+    bounces at ``size`` with each seed of ``seeds`` (the calibration: raw
+    and clamped relBias, ``gate_band`` of the clamped ones), the test run
+    (seed ``max(seeds) + 1 + scene``, apart from the calibration's)
+    against GATE_RAW and the band, the centre of a CENTRED preset against
+    zero, and for LONG_PRESETS a ``long_frames``-frame render at
+    ``long_size`` (``size`` by default; seed ``LONG_SEED + scene``)
+    unclamped against LONG_BOUND.  ``failures`` lists each broken gate,
+    ``passed`` is whether there is none."""
+    dev = torch.device(device)
+    w, h = size
+    long_w, long_h = long_size or size
+    rec = dict(study="gates", **device_record(dev), seed=seed, width=w,
+               height=h, frames=frames, path_length=path_length,
+               seeds=list(seeds), golden_seed=GATE_GOLDEN_SEED,
+               clip_factor=GATE_CLIP, raw_bound=GATE_RAW,
+               tol_sigmas=GATE_SIGMAS, tol_min=GATE_TOL_MIN,
+               long_frames=long_frames, long_width=long_w,
+               long_height=long_h, long_bound=LONG_BOUND,
+               kernels_launched={}, presets={}, failures=[])
+    density = _cloud(density, seed)
+    spent = dict(s=0.0, frames=0)
+
+    def render(mc, n, s):
+        cam = Camera.reference_camera(aspect=mc.width / mc.height,
+                                      device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        img = mc.render(cam, n, seed=s)
+        sync(dev)
+        spent["s"] += time.perf_counter() - t0
+        spent["frames"] += n
+        return img
+
+    def fail(what):
+        rec["failures"].append(what)
+        log(f"gates: FAILED {what}")
+
+    for sid in presets:
+        pcfg, vol = preset_scene(sid, density, cfg, device=dev)
+        with launched(rec, f"{sid} golden"):
+            g = _golden_record(pcfg, vol, golden_size, golden_frames,
+                               golden_path, device, seed=GATE_GOLDEN_SEED)
+        gold = GoldenReference(read_exr_rgba(g["file"]), device=dev)
+        valid = gold.image[..., 3] != 0
+        clip = GATE_CLIP * float(gold.image[..., :3][valid].mean())
+        # the golden pooled to the runs' size once, as compare pools it
+        pooled = gold if gold.image.shape[:2] == (h, w) else \
+            GoldenReference(_downsample(gold.image, (h, w)), device=dev)
+
+        def mc_at(width, height):
+            return McRenderer(dataclasses.replace(
+                pcfg, render_width=width, render_height=height,
+                mc_path_length=path_length), vol)
+
+        mc = mc_at(w, h)
+
+        def score(img):
+            return (float(pooled.compare(img).rel_bias),
+                    float(pooled.compare(img, clip=clip).rel_bias))
+
+        s0, f0 = spent["s"], spent["frames"]
+        calibration = []
+        with launched(rec, f"{sid} calibration"):
+            for s in seeds:
+                raw, clamped = score(render(mc, frames, s))
+                calibration.append(dict(seed=s, raw=raw, clamped=clamped))
+        band = gate_band([c["clamped"] for c in calibration])
+        test_seed = max(seeds) + 1 + sid
+        with launched(rec, f"{sid} test"):
+            raw, clamped = score(render(mc, frames, test_seed))
+        test = dict(seed=test_seed, raw=raw, clamped=clamped,
+                    raw_ok=abs(raw) < GATE_RAW,
+                    band_ok=abs(clamped - band["centre"]) < band["tol"])
+        p = dict(scene=dataclasses.asdict(pcfg.scene), golden=g, clip=clip,
+                 calibration=calibration, **band,
+                 raw_min=min(c["raw"] for c in calibration),
+                 raw_max=max(c["raw"] for c in calibration), test=test,
+                 centred_ok=(abs(band["centre"]) < band["tol"]
+                             if sid in CENTRED else None), long=None)
+        if not test["raw_ok"]:
+            fail(f"preset {sid}: test run's raw relBias {raw:+.4f} "
+                 f"(bound {GATE_RAW})")
+        if not test["band_ok"]:
+            fail(f"preset {sid}: test run's clamped relBias {clamped:+.4f} "
+                 f"outside {band['centre']:+.4f} +- {band['tol']:.4f}")
+        if p["centred_ok"] is False:
+            fail(f"preset {sid}: centre {band['centre']:+.4f} outside +- "
+                 f"{band['tol']:.4f} of zero")
+        if sid in LONG_PRESETS:
+            long_seed = LONG_SEED + sid
+            with launched(rec, f"{sid} long"):
+                rb = float(gold.compare(render(
+                    mc_at(long_w, long_h), long_frames, long_seed)).rel_bias)
+            p["long"] = dict(seed=long_seed, frames=long_frames, rel_bias=rb,
+                             ok=abs(rb) < LONG_BOUND)
+            if not p["long"]["ok"]:
+                fail(f"preset {sid}: long-budget relBias {rb:+.4f} (bound "
+                     f"{LONG_BOUND})")
+        p["ms_per_mc_frame"] = \
+            1e3 * (spent["s"] - s0) / (spent["frames"] - f0)
+        rec["presets"][str(sid)] = p
+        log(f"gates preset {sid}: golden {g['seconds']:.1f} s (cached "
+            f"{g['cached']}), clip {clip:.4g}, centre {band['centre']:+.4f} "
+            f"sigma {band['sigma']:.4f} tol {band['tol']:.4f}; test raw "
+            f"{raw:+.4f} clamped {clamped:+.4f}"
+            + (f"; long {p['long']['rel_bias']:+.4f}" if p["long"] else "")
+            + f"; {p['ms_per_mc_frame']:.1f} ms per MC frame")
+    rec["mc_frames"] = spent["frames"]
+    rec["ms_per_mc_frame"] = 1e3 * spent["s"] / max(spent["frames"], 1)
+    rec["passed"] = not rec["failures"]
+    return rec
+
+
+def scenes(runs=SCENE_RUNS, cfg: AppConfig | None = None,
+           frames: int = FRAMES, tail_n: int = TAIL_N,
+           golden_size=GOLDEN_SIZE, golden_frames: int = GOLDEN_FRAMES,
+           golden_path: int = GOLDEN_PATH, width: int = 1920,
+           height: int = 1080, seed: int = 0, density=None,
+           device="cuda") -> dict:
+    """``convergence``'s protocol for each run of ``runs`` ((label, scene
+    preset, AppConfig fields) over ``cfg``, ``AppConfig()`` by default)
+    at its own table size, each against its own golden (the cache keys
+    the scene and ``env_fixed16``); NRC's tail MSE must lie below MC's
+    on each run of SCENE_GATED.  Where a scene ran with and without
+    ``env_fixed16`` the fixed-step golden is scored against the
+    ratio-tracked one (``env_fixed16_golden_rel_bias``)."""
+    rec = dict(study="scenes", **device_record(torch.device(device)),
+               seed=seed, width=width, height=height, frames=frames,
+               tail_n=tail_n, kernels_launched={}, runs={}, failures=[],
+               env_fixed16_golden_rel_bias={})
+    density = _cloud(density, seed)
+    for label, sid, fields in runs:
+        run_cfg = dataclasses.replace(cfg or AppConfig(),
+                                      scene=SceneConfig.preset(sid),
+                                      **fields)
+        conv = convergence(run_cfg, frames, tail_n, golden_size,
+                           golden_frames, golden_path, width, height,
+                           tables=(run_cfg.encoding.log2_hashmap_size,),
+                           seed=seed, density=density, device=device)
+        (run,) = conv["runs"].values()
+        for section, launches in conv["kernels_launched"].items():
+            rec["kernels_launched"][f"{label} {section}"] = launches
+        s = run["summary"]
+        rec["runs"][label] = dict(scene=sid, fields=fields,
+                                  golden=conv["golden"],
+                                  seconds=run["seconds"], summary=s,
+                                  rows=run["rows"])
+        if label in SCENE_GATED and not s["mse_ratio"] < 1.0:
+            rec["failures"].append(f"{label}: NRC/MC tail MSE "
+                                   f"{s['mse_ratio']:.4f}, not below 1")
+            log(f"scenes: FAILED {rec['failures'][-1]}")
+    files = {(r["scene"], bool(r["fields"].get("env_fixed16"))):
+             r["golden"]["file"] for r in rec["runs"].values()}
+    for (sid, fixed), path in files.items():
+        if fixed and (sid, False) in files:
+            ref = GoldenReference(read_exr_rgba(files[sid, False]),
+                                  device=device)
+            gap = float(ref.compare(read_exr_rgba(path)).rel_bias)
+            rec["env_fixed16_golden_rel_bias"][str(sid)] = gap
+            log(f"scenes: scene {sid}'s env_fixed16 golden against its "
+                f"ratio-tracked one: relBias {gap:+.4f}")
+    rec["passed"] = not rec["failures"]
+    return rec
+
+
+STUDIES = ("convergence", "interactive", "restir", "gates", "scenes")
 
 
 def run_study(name: str, seed: int = 0, frames: int | None = None,
               golden_frames: int | None = None, device="cuda") -> dict:
     """One study at full size; ``frames`` and ``golden_frames`` override
-    its frame counts (the tail stays at most TAIL_N frames)."""
+    its frame counts (the tail stays at most TAIL_N frames; for ``gates``
+    ``frames`` is the calibration and test runs')."""
     kw = dict(seed=seed, device=device)
     if frames is not None:
         kw["frames"] = frames
-        if name != "restir":
+        if name not in ("restir", "gates"):
             kw["tail_n"] = min(TAIL_N, frames)
     if golden_frames is not None:
         kw["truth_frames" if name == "restir" else "golden_frames"] = \
             golden_frames
     fn = dict(convergence=convergence, interactive=interactive,
-              restir=restir)[name]
+              restir=restir, gates=gates, scenes=scenes)[name]
     t0 = time.perf_counter()
     rec = fn(**kw)
     rec["run_s"] = time.perf_counter() - t0
@@ -550,10 +808,11 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0,
                    help="the procedural cloud's seed")
     p.add_argument("--frames", type=int, default=None,
-                   help="frames of each run (default: 24 for convergence "
-                        "and the interactive trace, 16 for ReSTIR)")
+                   help="frames of each run (default: 24 for convergence, "
+                        "the interactive trace and scenes, 16 for ReSTIR, "
+                        "10 for the gates' test runs)")
     p.add_argument("--golden-frames", type=int, default=None,
-                   help="frames of the golden and of ReSTIR's truth "
+                   help="frames of the goldens and of ReSTIR's truth "
                         "(default 256)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -562,6 +821,7 @@ def main(argv=None) -> int:
         return 1
     names = STUDIES if args.study == "all" else (args.study,)
     os.makedirs(OUT_DIR, exist_ok=True)
+    failed = []
     for name in names:
         rec = run_study(name, args.seed, args.frames, args.golden_frames)
         path = os.path.join(OUT_DIR, f"quality_{name}.json")
@@ -569,6 +829,11 @@ def main(argv=None) -> int:
             json.dump(rec, f, indent=1)
         log(f"{name}: record written to {path}")
         print(json.dumps(rec), flush=True)
+        if rec.get("passed") is False:
+            failed.append(name)
+    if failed:
+        log(f"quality_torch: gates broken in {', '.join(failed)}")
+        return 1
     return 0
 
 

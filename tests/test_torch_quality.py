@@ -7,7 +7,11 @@ render again, and a cut build resumes to the uncut golden bit for bit;
 ``app_argv`` gives the app the configuration it was asked for; each study
 runs end to end at 16x9 with ``device="cpu"`` on a small thin cloud and a
 small network (the app's scored frames pooled to an 8x5 golden), and its record has its keys; a failing run fails the study; and
-without a card ``main()`` returns 1 before any work.
+without a card ``main()`` returns 1 before any work.  The scene presets:
+``preset_scene`` builds each preset's volume at its own density; the
+gate arithmetic by hand; ``gates`` and ``scenes`` at 16x9 with every
+section and verdict of their records; a broken gate fails the study and
+``main``.
 """
 
 import dataclasses
@@ -322,13 +326,151 @@ def test_main_without_a_card_returns_1(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("fn", [qt.golden, qt.golden_file, qt.convergence,
-                                qt.interactive, qt.restir, qt.run_study],
+                                qt.interactive, qt.restir, qt.run_study,
+                                qt.gates, qt.scenes, qt.preset_scene],
                          ids=lambda fn: fn.__name__)
 def test_studies_default_to_the_card(fn):
     """A caller who names no device gets the GPU, never a CPU run."""
     import inspect
 
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+# -- the scene presets, the golden gates and the scenes study ---------------------
+
+def test_preset_scene_builds_the_preset_volume():
+    """Each preset's cloud at its own density and phase g, so presets 3, 4
+    and 5 (0.25, 0.6, 1.6) give three golden keys; 0 and 4 share the
+    density but not the lights."""
+    keys = {}
+    for sid, density in ((3, 0.25), (4, 0.6), (5, 1.6), (0, 0.6)):
+        cfg, vol = qt.preset_scene(sid, _density(), SMALL, device="cpu")
+        assert cfg.scene == SceneConfig.preset(sid)
+        assert cfg.nn_width == SMALL.nn_width
+        assert vol.density_factor == pytest.approx(density, rel=1e-7)
+        assert vol.g == pytest.approx(cfg.scene.volume_g, rel=1e-7)
+        keys[sid] = qt.golden_key(cfg, vol, W, H, 4, 8, 0)
+    assert len(set(keys.values())) == 4
+    # the volume the renderers would read is the preset's, not preset 4's
+    _, vol4 = qt.preset_scene(4, _density(), device="cpu")
+    _, vol5 = qt.preset_scene(5, _density(), device="cpu")
+    assert qt.volume_digest(vol4) != qt.volume_digest(vol5)
+
+
+def test_gate_band_by_hand():
+    """centre = the mean, sigma = the population spread, tol = max(3.5
+    sigma, 0.08)."""
+    band = qt.gate_band([-0.1, 0.0, 0.1, 0.2])
+    # mean 0.05; deviations -0.15 -0.05 0.05 0.15; variance 0.0125
+    assert band["centre"] == pytest.approx(0.05, abs=1e-15)
+    assert band["sigma"] == pytest.approx(math.sqrt(0.0125), rel=1e-12)
+    assert band["tol"] == pytest.approx(3.5 * math.sqrt(0.0125), rel=1e-12)
+    narrow = qt.gate_band([0.01, 0.012, 0.011])
+    assert narrow["tol"] == 0.08
+    assert narrow["centre"] == pytest.approx(0.011, rel=1e-12)
+
+
+GATE_SMALL = dict(size=(W, H), frames=1, path_length=4, seeds=(1, 2, 3, 4),
+                  golden_size=(W, H), golden_frames=2, golden_path=4,
+                  long_frames=2)
+GATE_KEYS = ("clip", "centre", "sigma", "tol", "raw_min", "raw_max",
+             "ms_per_mc_frame")
+
+
+def test_gates_on_the_cpu(cache):
+    """The study at 16x9 on presets 1 (a long-budget preset) and 3 (a
+    centred one): every section, every number, the verdicts as the rules
+    read the numbers."""
+    rec = qt.gates(presets=(1, 3), density=_density(), device="cpu",
+                   **GATE_SMALL)
+    assert rec["study"] == "gates" and rec["device"] == "cpu"
+    assert sorted(rec["presets"]) == ["1", "3"]
+    assert set(rec["kernels_launched"]) == {
+        "1 golden", "1 calibration", "1 test", "1 long", "3 golden",
+        "3 calibration", "3 test"}
+    assert rec["mc_frames"] == 2 * (4 + 1) + 2
+    _finite(rec, ("ms_per_mc_frame",))
+    for sid, p in rec["presets"].items():
+        _finite(p, GATE_KEYS)
+        assert p["scene"]["id"] == int(sid)
+        assert p["golden"]["seed"] == qt.GATE_GOLDEN_SEED
+        assert [c["seed"] for c in p["calibration"]] == [1, 2, 3, 4]
+        band = qt.gate_band([c["clamped"] for c in p["calibration"]])
+        assert (p["centre"], p["sigma"], p["tol"]) == (
+            band["centre"], band["sigma"], band["tol"])
+        t = p["test"]
+        # a seed apart from the calibration's, so the band is a check
+        assert t["seed"] == 5 + int(sid)
+        assert t["raw_ok"] == (abs(t["raw"]) < qt.GATE_RAW)
+        assert t["band_ok"] == (abs(t["clamped"] - p["centre"]) < p["tol"])
+        assert (t["raw"], t["clamped"]) not in [
+            (c["raw"], c["clamped"]) for c in p["calibration"]]
+    assert rec["presets"]["1"]["centred_ok"] is None
+    assert rec["presets"]["3"]["centred_ok"] == (
+        abs(rec["presets"]["3"]["centre"]) < rec["presets"]["3"]["tol"])
+    long = rec["presets"]["1"]["long"]
+    assert (long["seed"], long["frames"]) == (18, 2)
+    assert long["ok"] == (abs(long["rel_bias"]) < qt.LONG_BOUND)
+    assert rec["presets"]["3"]["long"] is None
+    assert rec["passed"] == (not rec["failures"])
+    json.dumps(rec)
+
+
+@pytest.mark.parametrize("bounds,failure", [
+    (dict(LONG_BOUND=0.0), "long-budget"),
+    (dict(GATE_SIGMAS=0.0, GATE_TOL_MIN=0.0), "outside")],
+    ids=["long", "band"])
+def test_a_broken_gate_fails_the_study(cache, monkeypatch, capsys, bounds,
+                                       failure):
+    """A long-budget bound, or a band, that nothing meets fails the study,
+    and ``main`` writes the record, then returns 1."""
+    for name, value in bounds.items():
+        monkeypatch.setattr(qt, name, value)
+    rec = qt.gates(presets=(1,), density=_density(), device="cpu",
+                   **GATE_SMALL)
+    assert rec["passed"] is False
+    assert any(failure in f for f in rec["failures"])
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(qt, "run_study", lambda *a: rec)
+    monkeypatch.chdir(cache)
+    assert qt.main(["gates"]) == 1
+    with open(cache / "output_torch" / "quality_gates.json") as f:
+        assert json.load(f)["failures"] == rec["failures"]
+    assert "gates broken in gates" in capsys.readouterr().err
+
+
+SCENE_SMALL = (("scene0", 0, {}), ("scene5", 5, {}),
+               ("scene5_env_fixed16", 5, dict(env_fixed16=True)))
+
+
+def test_scenes_on_the_cpu(cache):
+    """The study at 16x9 for one frame a run: each run at its preset and
+    fields against its own golden (scene 5's two share none), the gate
+    read on scene 0, the fixed-step golden scored against the
+    ratio-tracked one."""
+    rec = qt.scenes(runs=SCENE_SMALL, cfg=SMALL,
+                    frames=1, tail_n=1, golden_size=(8, 5), golden_frames=2,
+                    golden_path=8, width=W, height=H, density=_density(),
+                    device="cpu")
+    assert rec["study"] == "scenes" and list(rec["runs"]) == [
+        r[0] for r in SCENE_SMALL]
+    keys = {label: run["golden"]["key"] for label, run in rec["runs"].items()}
+    assert len(set(keys.values())) == 3
+    for label, sid, fields in SCENE_SMALL:
+        run = rec["runs"][label]
+        assert (run["scene"], run["fields"]) == (sid, fields)
+        _finite(run["summary"], ("nrc_mse", "nrc_rel_bias", "nrc_cv",
+                                 "mc_mse", "mc_rel_bias", "mc_cv",
+                                 "mse_ratio"))
+        assert len(run["rows"]) == 1
+        assert {f"{label} golden", f"{label} 2e12"} <= set(
+            rec["kernels_launched"])
+    ratio = rec["runs"]["scene0"]["summary"]["mse_ratio"]
+    assert rec["passed"] == (ratio < 1.0)
+    assert set(rec["env_fixed16_golden_rel_bias"]) == {"5"}
+    assert math.isfinite(rec["env_fixed16_golden_rel_bias"]["5"])
+    json.dumps(rec)
 
 
 # -- chip_smoke.py's studies phase, rehearsed -------------------------------------
@@ -386,3 +528,4 @@ def test_studies_phase_gates_the_claim(cache, monkeypatch):
     monkeypatch.setattr(chip_smoke, "STUDY_MSE_RATIO", 0.9)
     with pytest.raises(AssertionError, match="NRC/MC tail MSE 0.95"):
         chip_smoke.studies_phase(torch, "cpu", SMALL_SIZES, device="cpu")
+

@@ -278,6 +278,29 @@ def test_optimizer_and_ema_from_identical_grads(opt):
         _leaves_close(got, want, 1e-6, 1e-9, 1.0, f"ema step {step}")
 
 
+def test_adam_update_is_optax_bitwise():
+    """Three Adam steps on 65,536 entries whose gradients span six decades
+    equal optax's eager steps bit for bit: the square root is the
+    correctly rounded one (``cache.sqrt_f32``; torch's vectorized CPU
+    sqrt read an ulp off on 0.3% of these entries)."""
+    rs = np.random.RandomState(11)
+    n = 1 << 16
+    p = rs.normal(0, 0.02, n).astype(np.float32)
+    jopt = optax.adam(0.01, b1=0.9, b2=0.999, eps=1e-8)
+    jp = jnp.asarray(p)
+    jstate = jopt.init(jp)
+    tp = {"a": _t(p)}
+    tstate = tcache.adam_init(tp)
+    for _ in range(3):
+        g = (rs.normal(0, 1e-3, n)
+             * rs.choice([1.0, 1e-3, 1e-6], n)).astype(np.float32)
+        upd, jstate = jopt.update(jnp.asarray(g), jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+        tp, tstate = tcache.adam_update({"a": _t(g)}, tstate, tp, 0.01)
+        assert np.array_equal(tp["a"].numpy().view(np.uint32),
+                              np.asarray(jp).view(np.uint32))
+
+
 @pytest.mark.parametrize("opt,log2", [("Adam", 12), ("Adam", 17),
                                       ("SGD", 12)])
 def test_train_step_and_frame_match(opt, log2):
