@@ -69,7 +69,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--export-exr", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="print the per-stage frame breakdown (the "
-                        "reference's 8-query timestamp pool) before the run")
+                        "reference's 8-query timestamp pool) of real "
+                        "frames before the run, and write one more frame's "
+                        "profiler trace to <out>/trace/trace.json")
     p.add_argument("--compare-accumulated", action="store_true",
                    help="compare the accumulated on-screen image instead "
                         "of a fresh ref-camera frame (NOT the reference's "
@@ -232,7 +234,8 @@ def _run(args, device, group) -> int:
 
     if args.profile and nrc_renderer is not None and group is None:
         from .profiler import format_stage_report, profile_nrc_frame
-        stages = profile_nrc_frame(nrc_renderer, nrc_state, cam)
+        stages = profile_nrc_frame(nrc_renderer, nrc_state, cam,
+                                   trace_dir=os.path.join(out_dir, "trace"))
         print(format_stage_report(stages), flush=True)
         logger.event("stage_profile", **{k: round(v, 3)
                                          for k, v in stages.items()})

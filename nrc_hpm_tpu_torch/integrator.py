@@ -42,7 +42,7 @@ import functools
 
 import torch
 
-from . import transmittance
+from . import profiler, transmittance
 from .lights import LightFlags, Lights, sample_env_map
 from .sampling import hg_phase, new_ray_dir
 from .utils import rng
@@ -234,6 +234,7 @@ def _jax_lanes(n: int, frac: float, count: int) -> int:
     return n
 
 
+@profiler.region("rng")
 def _advance_dead(state, alive, steps: int):
     """Advance the RNG chain of the lanes that are not alive by ``steps``
     draws (the JAX package's full-batch phases do so)."""
@@ -244,10 +245,12 @@ def _advance_dead(state, alive, steps: int):
 
 def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
                *, n_bounces: int, primary_ray_length: int | None = None,
-               primary_ray_prob: float = 0.0, active=None):
+               primary_ray_prob: float = 0.0, active=None,
+               path: str = "train"):
     """The shared bounce loop.  ro/rd (N, 3): ray origins and unit
-    directions (the first segment starts at the box entry).  Returns dict
-    with radiance (N, 3), throughput (N,), did_scatter (N,), terminal_pos
+    directions (the first segment starts at the box entry); ``path``
+    names the loop in each bounce's span (primary, train or mc).  Returns
+    dict with radiance (N, 3), throughput (N,), did_scatter (N,), terminal_pos
     / terminal_dir (N, 3) (the NRC query), alive (N,) (lanes still inside
     the volume when the bounce budget ran out) and state (N,)."""
     n = ro.shape[0]
@@ -273,44 +276,49 @@ def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,
               + int(p.flags.env_on and not p.env_fixed16))
 
     for i in range(n_bounces):
-        p_b = p.second_bounce_params() if unrolled and i > 0 else p
-        idx = torch.nonzero(alive).squeeze(1)
-        if idx.numel() == 0:
-            break
-        # delta phase: find the next collision
-        plan = _jax_lanes(n, p_b.bounce_compact_frac, idx.numel())
-        if plan == n and chained:
-            state = _advance_dead(state, alive, 1)
-        new_pt, exited, st = p_b.delta_track(
-            state[idx], vol, point[idx], direction[idx], p_b.max_track_steps,
-            **p_b.plan(plan))
-        point = point.index_put((idx,), new_pt)
-        alive = alive.index_put((idx,), ~exited)
-        state = state.index_put((idx,), st)
-        scattered = scattered | alive
+        with profiler.span("nrc.bounce", i=i, path=path) as bounce:
+            p_b = p.second_bounce_params() if unrolled and i > 0 else p
+            with profiler.sync("bounce.delta"):
+                idx = torch.nonzero(alive).squeeze(1)
+            bounce.set(lanes=idx.numel())
+            if idx.numel() == 0:
+                break
+            # delta phase: find the next collision
+            plan = _jax_lanes(n, p_b.bounce_compact_frac, idx.numel())
+            if plan == n and chained:
+                state = _advance_dead(state, alive, 1)
+            new_pt, exited, st = p_b.delta_track(
+                state[idx], vol, point[idx], direction[idx],
+                p_b.max_track_steps, **p_b.plan(plan))
+            point = point.index_put((idx,), new_pt)
+            alive = alive.index_put((idx,), ~exited)
+            state = state.index_put((idx,), st)
+            scattered = scattered | alive
 
-        # scene phase: direct light at the collision, then a new direction
-        idx = torch.nonzero(alive).squeeze(1)
-        plan = _jax_lanes(n, p_b.scene_compact_frac, idx.numel())
-        if plan == n and chained:
-            state = _advance_dead(state, alive, n_segs)
-        if idx.numel() == 0:
-            break
-        f_i = factor[idx] * 0.5
-        light, st = trace_scene(
-            state[idx], vol, lights, p_b, point[idx], direction[idx],
-            plan_lanes=plan)
-        radiance = radiance.index_put((idx,),
-                                      radiance[idx] + light * f_i[:, None])
-        factor = factor.index_put((idx,), f_i)
-        new_dir, st = new_ray_dir(st, direction[idx], vol.g,
-                                  phase_sampling=True)
-        direction = direction.index_put((idx,), new_dir)
-        if primary_ray_length is not None and i >= primary_ray_length:
-            u, st = rng.uniform(st)
-            terminate = (u >= primary_ray_prob) | (i == 128)
-            alive = alive.index_put((idx,), ~terminate)
-        state = state.index_put((idx,), st)
+            # scene phase: direct light at the collision, then a new
+            # direction
+            with profiler.sync("bounce.scene"):
+                idx = torch.nonzero(alive).squeeze(1)
+            plan = _jax_lanes(n, p_b.scene_compact_frac, idx.numel())
+            if plan == n and chained:
+                state = _advance_dead(state, alive, n_segs)
+            if idx.numel() == 0:
+                break
+            f_i = factor[idx] * 0.5
+            light, st = trace_scene(
+                state[idx], vol, lights, p_b, point[idx], direction[idx],
+                plan_lanes=plan)
+            radiance = radiance.index_put(
+                (idx,), radiance[idx] + light * f_i[:, None])
+            factor = factor.index_put((idx,), f_i)
+            new_dir, st = new_ray_dir(st, direction[idx], vol.g,
+                                      phase_sampling=True)
+            direction = direction.index_put((idx,), new_dir)
+            if primary_ray_length is not None and i >= primary_ray_length:
+                u, st = rng.uniform(st)
+                terminate = (u >= primary_ray_prob) | (i == 128)
+                alive = alive.index_put((idx,), ~terminate)
+            state = state.index_put((idx,), st)
 
     return dict(radiance=radiance, throughput=factor, did_scatter=scattered,
                 terminal_pos=point, terminal_dir=direction, alive=alive,
@@ -329,14 +337,14 @@ def trace_primary(state, vol, lights, p: TraceParams, ro, rd, cfg,
         prob = cfg.primary_ray_prob
     return trace_path(state, vol, lights, p, ro, rd, n_bounces=n,
                       primary_ray_length=cfg.primary_ray_length,
-                      primary_ray_prob=prob, active=active)
+                      primary_ray_prob=prob, active=active, path="primary")
 
 
 def trace_fixed(state, vol, lights, p: TraceParams, ro, rd, n_bounces: int,
-                active=None):
+                active=None, path: str = "train"):
     """Train TracePath: up to ``n_bounces`` delta-tracked bounces."""
     return trace_path(state, vol, lights, p, ro, rd, n_bounces=n_bounces,
-                      active=active)
+                      active=active, path=path)
 
 
 def primary_miss_mask(vol: Volume, ro, rd):

@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import profiler
 from .camera import Camera, pixel_rays
 from .config import AppConfig
 from .integrator import (TraceParams, primary_miss_mask, trace_fixed,
@@ -95,28 +96,31 @@ class McRenderer:
 
     def step(self, state: McState, camera: Camera) -> McState:
         """One frame, its seed drawn from a split of ``state.key``."""
-        H, W = self.height, self.width
-        n = H * W
-        vol, lights = self.vol, self.lights
-        key, sub = prng.split(state.key)
-        ro, rd, frag_uv = pixel_rays(camera, W, H)
-        rng_state = rng.init_state(frag_uv, rng.frame_random(sub)).reshape(n)
+        with profiler.span(profiler.FRAME):
+            H, W = self.height, self.width
+            n = H * W
+            vol, lights = self.vol, self.lights
+            key, sub = prng.split(state.key)
+            ro, rd, frag_uv = pixel_rays(camera, W, H)
+            rng_state = rng.init_state(frag_uv,
+                                       rng.frame_random(sub)).reshape(n)
 
-        def mc_chunk(s, o, d):
-            res = trace_fixed(s, vol, lights, self.params, o, d,
-                              self.path_length,
-                              active=~primary_miss_mask(vol, o, d))
-            return res["did_scatter"], res["radiance"]
+            def mc_chunk(s, o, d):
+                res = trace_fixed(s, vol, lights, self.params, o, d,
+                                  self.path_length,
+                                  active=~primary_miss_mask(vol, o, d),
+                                  path="mc")
+                return res["did_scatter"], res["radiance"]
 
-        did_scatter, radiance = _map_chunks(
-            mc_chunk, self.cfg.trace_chunks, rng_state, ro.expand(n, 3),
-            rd.reshape(n, 3))
-        did_scatter = did_scatter.reshape(H, W, 1)
-        rgb = torch.where(did_scatter, radiance.reshape(H, W, 3),
-                          sample_env_map(lights.env, rd))
-        out = torch.cat([rgb, did_scatter.to(torch.float32)], dim=-1)
-        image, blend_index = _blend(state, out, self.blend)
-        return McState(image=image, blend_index=blend_index, key=key)
+            did_scatter, radiance = _map_chunks(
+                mc_chunk, self.cfg.trace_chunks, rng_state, ro.expand(n, 3),
+                rd.reshape(n, 3))
+            did_scatter = did_scatter.reshape(H, W, 1)
+            rgb = torch.where(did_scatter, radiance.reshape(H, W, 3),
+                              sample_env_map(lights.env, rd))
+            out = torch.cat([rgb, did_scatter.to(torch.float32)], dim=-1)
+            image, blend_index = _blend(state, out, self.blend)
+            return McState(image=image, blend_index=blend_index, key=key)
 
     def multi_step(self, state: McState, camera: Camera, n: int) -> McState:
         """``n`` accumulation steps."""
@@ -183,7 +187,8 @@ def primary_pass_compact(rng_state, vol, lights, params: TraceParams,
     same contract and values, the trackers scheduled for the compacted
     lane count."""
     n = ro.shape[0]
-    idx = torch.nonzero(~primary_miss_mask(vol, ro, rd)).squeeze(1)
+    with profiler.sync("primary_compact"):
+        idx = torch.nonzero(~primary_miss_mask(vol, ro, rd)).squeeze(1)
 
     def trace_hit(s, o, d):
         res = trace_primary(s, vol, lights, params, o, d, cfg)
@@ -219,7 +224,8 @@ def infer_filtered(cache: NeuralRadianceCache, nrc_state: NrcState, x5,
         return cache.infer(nrc_state, x5)
     out = torch.zeros((x5.shape[0], 3), dtype=torch.float32,
                       device=x5.device)
-    idx = torch.nonzero(scat).squeeze(1)
+    with profiler.sync(profiler.FILTER_SITE):
+        idx = torch.nonzero(scat).squeeze(1)
     if idx.numel():
         out[idx] = cache.infer(nrc_state, x5[idx])
     return out
@@ -303,29 +309,37 @@ class NrcRenderer:
         frame seed is drawn from a split of ``state.key``, as the JAX
         package draws it; ``frame_random`` (4,) overrides it (the key is
         split all the same)."""
-        H, W = self.height, self.width
-        n = H * W
-        vol = self.vol
-        key, sub = prng.split(state.key)
-        if frame_random is None:
-            frame_random = rng.frame_random(sub)
-        ro, rd, frag_uv = pixel_rays(camera, W, H)
-        rng_state = rng.init_state(frag_uv, frame_random).reshape(n)
-        prim = self.primary(rng_state, ro.expand(n, 3), rd.reshape(n, 3))
+        with profiler.span(profiler.FRAME):
+            H, W = self.height, self.width
+            n = H * W
+            vol = self.vol
+            key, sub = prng.split(state.key)
+            if frame_random is None:
+                frame_random = rng.frame_random(sub)
+            ro, rd, frag_uv = pixel_rays(camera, W, H)
+            rng_state = rng.init_state(frag_uv, frame_random).reshape(n)
+            with profiler.span("nrc.primary"):
+                prim = self.primary(rng_state, ro.expand(n, 3),
+                                    rd.reshape(n, 3))
 
-        nrc_rgb = None
-        if self.show_nrc:
-            x5 = pack_nrc_inputs(vol, prim["nrc_pos"], prim["nrc_dir"])
-            nrc_rgb = self.infer(state.nrc, x5, prim["did_scatter"])
-        image, blend_index = self.composite(state, prim, nrc_rgb)
+            nrc_rgb = None
+            if self.show_nrc:
+                with profiler.span("nrc.pack"):
+                    x5 = pack_nrc_inputs(vol, prim["nrc_pos"],
+                                         prim["nrc_dir"])
+                with profiler.span("nrc.infer"):
+                    nrc_rgb = self.infer(state.nrc, x5, prim["did_scatter"])
+            with profiler.span("nrc.composite"):
+                image, blend_index = self.composite(state, prim, nrc_rgb)
 
-        ring = ring_wrap(state.ring)
-        nrc = state.nrc
-        if train:
-            ring, nrc = self.train(state.nrc, ring, prim, frame_random)
-        return dataclasses.replace(state, image=image,
-                                   blend_index=blend_index, ring=ring,
-                                   nrc=nrc, key=key)
+            with profiler.span("nrc.clear"):
+                ring = ring_wrap(state.ring)
+            nrc = state.nrc
+            if train:
+                ring, nrc = self.train(state.nrc, ring, prim, frame_random)
+            return dataclasses.replace(state, image=image,
+                                       blend_index=blend_index, ring=ring,
+                                       nrc=nrc, key=key)
 
     def primary(self, rng_state, ro, rd) -> dict:
         """The primary pass on (N, 3) pixel rays, as the configuration
@@ -398,9 +412,11 @@ class NrcRenderer:
               frame_random) -> tuple:
         """The train set and the frame's optimizer steps.  Returns (ring,
         nrc)."""
-        ring, train_x5, target = self.train_set(nrc, ring, prim,
-                                                frame_random)
-        return ring, self.cache.train_frame(nrc, train_x5, target)
+        with profiler.span("nrc.train_set"):
+            ring, train_x5, target = self.train_set(nrc, ring, prim,
+                                                    frame_random)
+        with profiler.span("nrc.train_frame"):
+            return ring, self.cache.train_frame(nrc, train_x5, target)
 
 
 def path_targets(cache: NeuralRadianceCache, nrc: NrcState, vol: Volume,

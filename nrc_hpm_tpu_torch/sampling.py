@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import profiler
 from .utils import rng
 
 PI = 3.14159265358979323846
@@ -64,8 +65,9 @@ def new_ray_dir(state, old_dir, g: float, phase_sampling: bool,
     norm = torch.linalg.vector_norm(cand, dim=-1, keepdim=True)
     fallback = torch.stack([-oy, ox, zero], dim=-1)
     fb_norm = torch.linalg.vector_norm(fallback, dim=-1, keepdim=True)
-    fallback2 = torch.tensor([1.0, 0.0, 0.0], dtype=cand.dtype,
-                             device=cand.device).expand(cand.shape)
+    with profiler.sync("new_ray_dir"):   # a copy from host memory
+        fallback2 = torch.tensor([1.0, 0.0, 0.0], dtype=cand.dtype,
+                                 device=cand.device).expand(cand.shape)
     cand = torch.where(norm > 1e-12, cand / torch.clamp(norm, min=1e-12),
                        torch.where(fb_norm > 1e-12,
                                    fallback / torch.clamp(fb_norm, min=1e-12),

@@ -41,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import profiler
 from .ops.pw_kernels import (SALT_CTRL, SALT_DELTA, SALT_RATIO, pw_events,
                              pw_profile)
 from .utils import rng
@@ -61,6 +62,7 @@ SALT_ACCEPT = 0xC2B2AE35
 SALT_FALLBACK = 0x27D4EB2F
 
 
+@profiler.region("rng")
 def _track_seed(state):
     """Split one indexed-draw seed (the state's bits, as int32) off the
     chain, which advances one step per track call."""
@@ -69,6 +71,7 @@ def _track_seed(state):
     return seed, state
 
 
+@profiler.region("rng")
 def _indexed_draws(seed, k0: int, n: int, salt: int):
     """u_k = floatConstruct(hash(seed ^ hash(salt + k))), k in [k0, k0+n);
     seed (...,) int32 bits -> (..., n) float32."""
@@ -78,6 +81,7 @@ def _indexed_draws(seed, k0: int, n: int, salt: int):
     return rng.float_construct(rng.hash_u32(s64[..., None] ^ hk))
 
 
+@profiler.region("rng")
 def _indexed_draws_lead(seed, k0: int, n: int, salt: int):
     """_indexed_draws with the event axis leading: (n, ...) float32."""
     return torch.movedim(_indexed_draws(seed, k0, n, salt), -1, 0)
@@ -134,7 +138,9 @@ def ratio_track(state, vol: Volume, start, end, max_steps: int = 128,
     done = torch.zeros_like(active)
     for _ in range(max_steps):
         lane = active & ~done
-        if not bool(lane.any()):
+        with profiler.sync("seq.ratio"):
+            tracking = bool(lane.any())
+        if not tracking:
             break   # the remaining iterations change nothing
         u, state = rng.masked_uniform(state, lane)
         t_new = t - torch.log(1.0 - u) * inv_max
@@ -167,7 +173,9 @@ def delta_track(state, vol: Volume, ro, rd, max_steps: int = 128,
     exited = torch.zeros_like(active)
     for _ in range(max_steps):
         lane = active & ~hit & ~exited
-        if not bool(lane.any()):
+        with profiler.sync("seq.delta"):
+            tracking = bool(lane.any())
+        if not tracking:
             break
         u1, state = rng.masked_uniform(state, lane)
         t = torch.where(lane, t - torch.log(1.0 - u1) * inv_max, t)
@@ -219,7 +227,9 @@ def ratio_track_fast(state, vol: Volume, start, end, max_steps: int = 128,
     t_last = torch.zeros_like(tmax)
     trans = torch.ones_like(tmax)
     for i in range(seg_count):
-        if not bool((t_last < tmax).any()):
+        with profiler.sync("fast.ratio"):
+            inside = bool((t_last < tmax).any())
+        if not inside:
             break   # every lane has left its segment
         t = _free_flights(seed, t_last, i, seg_len, SALT_RATIO, inv_max)
         dens = get_density(vol, start[..., None, :]
@@ -251,7 +261,9 @@ def delta_track_fast(state, vol: Volume, ro, rd, max_steps: int = 128,
     hit = torch.zeros_like(resolved)
     exited = torch.zeros_like(resolved)
     for i in range(seg_count):
-        if bool(resolved.all()):
+        with profiler.sync("fast.delta"):
+            done = bool(resolved.all())
+        if done:
             break
         t = _free_flights(seed, t_last, i, seg_len, SALT_DELTA, inv_max)
         u2 = _indexed_draws(seed, i * seg_len, seg_len, SALT_ACCEPT)
@@ -403,47 +415,57 @@ def ratio_track_pw(state, vol: Volume, start, end, max_steps: int = 128,
     T = exp(-int c) * E[prod over residual events (1 - (d - c)/(sigma - c))].
     start/end (N, 3); ``coarse`` profile intervals; returns
     (transmittance (N,), new_state)."""
-    seg_vec = end - start
-    tmax = torch.linalg.vector_norm(seg_vec, dim=-1)
-    direction = (seg_vec / torch.clamp(tmax, min=1e-12)[..., None]
-                 ).contiguous()
-    if active is not None:
-        tmax = torch.where(active, tmax, 0.0)
-    start = start.contiguous()
-    seed, state = _track_seed(state)
-    if coarse == KERNEL_INTERVALS:
-        tot = pw_profile(vol, start, direction, tmax, seed)
-        rtot, ctot, prof = tot["rtot"], tot["ctot"], None
-    else:
-        sigma, c, ccum, rcum, h = _coarse_profile(vol, start, direction,
-                                                  tmax, coarse)
-        rtot, ctot = rcum[-1], ccum[-1]
-        prof = (sigma, c, rcum, h, rtot)
-    e_last = torch.zeros_like(tmax)
-    # the analytic control factor is folded in up front so the roulette
-    # sees the full running transmittance
-    trans = torch.exp(-ctot)
-    small0 = (trans < RR_EPS) & (e_last < rtot)
-    u0 = _indexed_draws_lead(seed, 0, 1, SALT_RR0)[0]
-    survive0 = u0 * RR_EPS < trans
-    e_last = torch.where(small0 & ~survive0,
-                         torch.maximum(rtot, e_last) + 1.0, e_last)
-    trans = torch.where(small0, torch.where(survive0, RR_EPS, 0.0), trans)
+    with profiler.span("nrc.track", kind="ratio",
+                       lanes=start.shape[0]) as track:
+        seg_vec = end - start
+        tmax = torch.linalg.vector_norm(seg_vec, dim=-1)
+        direction = (seg_vec / torch.clamp(tmax, min=1e-12)[..., None]
+                     ).contiguous()
+        if active is not None:
+            tmax = torch.where(active, tmax, 0.0)
+        start = start.contiguous()
+        seed, state = _track_seed(state)
+        if coarse == KERNEL_INTERVALS:
+            tot = pw_profile(vol, start, direction, tmax, seed)
+            rtot, ctot, prof = tot["rtot"], tot["ctot"], None
+        else:
+            sigma, c, ccum, rcum, h = _coarse_profile(vol, start,
+                                                      direction, tmax,
+                                                      coarse)
+            rtot, ctot = rcum[-1], ccum[-1]
+            prof = (sigma, c, rcum, h, rtot)
+        e_last = torch.zeros_like(tmax)
+        # the analytic control factor is folded in up front so the
+        # roulette sees the full running transmittance
+        trans = torch.exp(-ctot)
+        small0 = (trans < RR_EPS) & (e_last < rtot)
+        u0 = _indexed_draws_lead(seed, 0, 1, SALT_RR0)[0]
+        survive0 = u0 * RR_EPS < trans
+        e_last = torch.where(small0 & ~survive0,
+                             torch.maximum(rtot, e_last) + 1.0, e_last)
+        trans = torch.where(small0, torch.where(survive0, RR_EPS, 0.0),
+                            trans)
 
-    lanes = tmax.shape[0] if plan_lanes is None else plan_lanes
-    for seg_len, i in _segments(lanes, segment, RATIO_PLAN, max_steps):
-        idx = torch.nonzero(e_last < rtot).squeeze(1)
-        if idx.numel() == 0:
-            break
-        ev = _segment_events(vol, prof, seed, start, direction, tmax, e_last,
-                             idx, i, seg_len, SALT_RATIO)
-        factors = torch.where(
-            ev["beyond"], 1.0,
-            1.0 - torch.clamp(ev["dens"] - ev["c_at"], min=0.0) / ev["sres"])
-        tr_i = trans[idx] * torch.prod(factors, dim=0)
-        tr_i, e_i = _ratio_rr(seed[idx], i, tr_i, ev["e_new"], ev["rtot"])
-        trans = trans.index_put((idx,), tr_i)
-        e_last = e_last.index_put((idx,), e_i)
+        lanes = tmax.shape[0] if plan_lanes is None else plan_lanes
+        segments = 0
+        for seg_len, i in _segments(lanes, segment, RATIO_PLAN, max_steps):
+            with profiler.sync("track.ratio"):
+                idx = torch.nonzero(e_last < rtot).squeeze(1)
+            if idx.numel() == 0:
+                break
+            segments += 1
+            ev = _segment_events(vol, prof, seed, start, direction, tmax,
+                                 e_last, idx, i, seg_len, SALT_RATIO)
+            factors = torch.where(
+                ev["beyond"], 1.0,
+                1.0 - torch.clamp(ev["dens"] - ev["c_at"], min=0.0)
+                / ev["sres"])
+            tr_i = trans[idx] * torch.prod(factors, dim=0)
+            tr_i, e_i = _ratio_rr(seed[idx], i, tr_i, ev["e_new"],
+                                  ev["rtot"])
+            trans = trans.index_put((idx,), tr_i)
+            e_last = e_last.index_put((idx,), e_i)
+        track.set(segments=segments)
     return trans, state
 
 
@@ -455,59 +477,69 @@ def delta_track_pw(state, vol: Volume, ro, rd, max_steps: int = 128,
     of the two is the collision (K2 and K1 at ``coarse = 32``, else the
     per-interval profile).  Returns (pos, volume_exit, new_state);
     non-collision lanes get a uniform fallback point."""
-    _, exit_pt, _ = find_entry_exit(vol, ro, rd)
-    tmax = torch.linalg.vector_norm(exit_pt - ro, dim=-1)
-    if active is not None:
-        tmax = torch.where(active, tmax, 0.0)
-    ro_c, rd_c = ro.contiguous(), rd.contiguous()
-    seed, state = _track_seed(state)
-    if coarse == KERNEL_INTERVALS:
-        tot = pw_profile(vol, ro_c, rd_c, tmax, seed, want_ctrl=True)
-        rtot, prof = tot["rtot"], None
-        ctrl_hit = tot["t_ctrl"] < 1.0e37
-        t_ctrl = torch.where(ctrl_hit, tot["t_ctrl"], torch.inf)
-    else:
-        sigma, c, ccum, rcum, h = _coarse_profile(vol, ro_c, rd_c, tmax,
-                                                  coarse)
-        rtot = rcum[-1]
-        prof = (sigma, c, rcum, h, rtot)
-        # the control stream's collision: one Exp(1) depth through ccum
-        e_ctrl = -torch.log1p(-_indexed_draws_lead(seed, 0, 1, SALT_CTRL)[0])
-        t_c, beyond_c, _ = _map_events(e_ctrl[None, :], ccum, h, ())
-        ctrl_hit = ~beyond_c[0] & (e_ctrl < ccum[-1])
-        t_ctrl = torch.where(ctrl_hit, t_c[0], torch.inf)
+    with profiler.span("nrc.track", kind="delta",
+                       lanes=ro.shape[0]) as track:
+        _, exit_pt, _ = find_entry_exit(vol, ro, rd)
+        tmax = torch.linalg.vector_norm(exit_pt - ro, dim=-1)
+        if active is not None:
+            tmax = torch.where(active, tmax, 0.0)
+        ro_c, rd_c = ro.contiguous(), rd.contiguous()
+        seed, state = _track_seed(state)
+        if coarse == KERNEL_INTERVALS:
+            tot = pw_profile(vol, ro_c, rd_c, tmax, seed, want_ctrl=True)
+            rtot, prof = tot["rtot"], None
+            ctrl_hit = tot["t_ctrl"] < 1.0e37
+            t_ctrl = torch.where(ctrl_hit, tot["t_ctrl"], torch.inf)
+        else:
+            sigma, c, ccum, rcum, h = _coarse_profile(vol, ro_c, rd_c,
+                                                      tmax, coarse)
+            rtot = rcum[-1]
+            prof = (sigma, c, rcum, h, rtot)
+            # the control stream's collision: one Exp(1) depth through
+            # ccum
+            e_ctrl = -torch.log1p(
+                -_indexed_draws_lead(seed, 0, 1, SALT_CTRL)[0])
+            t_c, beyond_c, _ = _map_events(e_ctrl[None, :], ccum, h, ())
+            ctrl_hit = ~beyond_c[0] & (e_ctrl < ccum[-1])
+            t_ctrl = torch.where(ctrl_hit, t_c[0], torch.inf)
 
-    # lanes with zero residual depth resolve analytically (crossed)
-    empty = rtot <= 0.0
-    e_last = torch.zeros_like(tmax)
-    resolved, crossed = empty, empty
-    t_res = torch.full_like(tmax, torch.inf)   # residual-stream collision
+        # lanes with zero residual depth resolve analytically (crossed)
+        empty = rtot <= 0.0
+        e_last = torch.zeros_like(tmax)
+        resolved, crossed = empty, empty
+        # the residual stream's collision
+        t_res = torch.full_like(tmax, torch.inf)
 
-    lanes = tmax.shape[0] if plan_lanes is None else plan_lanes
-    for seg_len, i in _segments(lanes, segment, DELTA_PLAN, max_steps):
-        idx = torch.nonzero(~resolved).squeeze(1)
-        if idx.numel() == 0:
-            break
-        ev = _segment_events(vol, prof, seed, ro_c, rd_c, tmax, e_last, idx,
-                             i, seg_len, SALT_DELTA)
-        u2 = _indexed_draws_lead(seed[idx], i, seg_len, SALT_ACCEPT)
-        beyond = ev["beyond"]
-        accept = ~beyond & (torch.clamp(ev["dens"] - ev["c_at"], min=0.0)
-                            / ev["sres"] > u2)
-        event = accept | beyond
-        first = event & (torch.cumsum(event.to(torch.int32), 0) == 1)
-        has_event = event.any(dim=0)
-        hit_now = has_event & (first & accept).any(dim=0)
-        ev_t = torch.where(first, ev["t"], 0.0).sum(dim=0)
-        # only unresolved lanes ran, so every event here is new
-        resolved = resolved.index_put((idx,), has_event)
-        crossed = crossed.index_put((idx,), has_event & ~hit_now)
-        t_res = t_res.index_put((idx,), torch.where(hit_now, ev_t, torch.inf))
-        e_last = e_last.index_put((idx,), ev["e_new"])
+        lanes = tmax.shape[0] if plan_lanes is None else plan_lanes
+        segments = 0
+        for seg_len, i in _segments(lanes, segment, DELTA_PLAN, max_steps):
+            with profiler.sync("track.delta"):
+                idx = torch.nonzero(~resolved).squeeze(1)
+            if idx.numel() == 0:
+                break
+            segments += 1
+            ev = _segment_events(vol, prof, seed, ro_c, rd_c, tmax, e_last,
+                                 idx, i, seg_len, SALT_DELTA)
+            u2 = _indexed_draws_lead(seed[idx], i, seg_len, SALT_ACCEPT)
+            beyond = ev["beyond"]
+            accept = ~beyond & (torch.clamp(ev["dens"] - ev["c_at"],
+                                            min=0.0) / ev["sres"] > u2)
+            event = accept | beyond
+            first = event & (torch.cumsum(event.to(torch.int32), 0) == 1)
+            has_event = event.any(dim=0)
+            hit_now = has_event & (first & accept).any(dim=0)
+            ev_t = torch.where(first, ev["t"], 0.0).sum(dim=0)
+            # only unresolved lanes ran, so every event here is new
+            resolved = resolved.index_put((idx,), has_event)
+            crossed = crossed.index_put((idx,), has_event & ~hit_now)
+            t_res = t_res.index_put((idx,),
+                                    torch.where(hit_now, ev_t, torch.inf))
+            e_last = e_last.index_put((idx,), ev["e_new"])
+        track.set(segments=segments)
 
-    t_star = torch.minimum(t_ctrl, t_res)
-    hit = t_star <= tmax
-    exited = ~hit & crossed & ~ctrl_hit
-    u3 = _indexed_draws(seed, 0, 1, SALT_FALLBACK)[..., 0]
-    t_final = torch.where(hit, t_star, u3 * tmax)
+        t_star = torch.minimum(t_ctrl, t_res)
+        hit = t_star <= tmax
+        exited = ~hit & crossed & ~ctrl_hit
+        u3 = _indexed_draws(seed, 0, 1, SALT_FALLBACK)[..., 0]
+        t_final = torch.where(hit, t_star, u3 * tmax)
     return ro + t_final[..., None] * rd, exited, state

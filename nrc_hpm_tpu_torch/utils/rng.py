@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiler
+
 M32 = 0xFFFFFFFF
 _MANTISSA = 0x007FFFFF
 _ONE = 0x3F800000
@@ -64,28 +66,33 @@ def random4(x, y, z, w) -> torch.Tensor:
         ^ hash_u32(f32_bits(w))))
 
 
+@profiler.region("rng")
 def init_state(frag_uv: torch.Tensor, frame_random: torch.Tensor
                ) -> torch.Tensor:
     """InitRandom: (..., 2) pixel UVs and a (4,) frame seed -> (...,)
     float32 per-lane state."""
     r2 = random2(frag_uv[..., 0], frag_uv[..., 1])
-    fr = frame_random.to(device=frag_uv.device, dtype=torch.float32)
+    with profiler.sync("rng.init_state"):   # the seed's copy to the card
+        fr = frame_random.to(device=frag_uv.device, dtype=torch.float32)
     r4 = random4(fr[0], fr[1], fr[2], fr[3])
     return random2(r2, r4.expand(r2.shape))
 
 
+@profiler.region("rng")
 def uniform(state: torch.Tensor, maxval=1.0):
     """RandFloat: returns (sample, new_state)."""
     new_state = random1(state)
     return new_state * maxval, new_state
 
 
+@profiler.region("rng")
 def masked_uniform(state: torch.Tensor, active: torch.Tensor, maxval=1.0):
     """Draw only on ``active`` lanes; inactive lanes keep their state."""
     sample, new_state = uniform(state, maxval)
     return sample, torch.where(active, new_state, state)
 
 
+@profiler.region("rng")
 def frame_random(key: torch.Tensor) -> torch.Tensor:
     """Per-frame (4,) seed vector in [0, 1): ``jax.random.uniform`` of a
     threefry key (``utils/prng.py``)."""

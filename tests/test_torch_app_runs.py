@@ -10,10 +10,12 @@ the JAX package's for the same stage dict (the keys of
 stage twice); the accumulated image is scored on the frames asked for;
 the checkpoint reads back into the next run bitwise; the MC-only run
 exports a finite image; ``profile_nrc_frame`` leaves the caller's state
-as it was, its ``total`` timed on a real step, and ``profile_trace``
-writes a Chrome trace."""
+as it was, its stages taken from the spans of real steps and its
+``total`` timed on them, and ``profile_trace`` writes a Chrome trace
+(``--profile`` one more frame's, with the program's spans)."""
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -65,6 +67,15 @@ def test_profile_keys_and_report_are_jax_s(runs):
                                          + stages["nn_train"], abs=2e-3)
     assert tprof.format_stage_report(stages) == \
         jprof.format_stage_report(stages)
+
+
+def test_profile_writes_a_profiled_frame_s_trace(runs):
+    with open(os.path.join(runs["profiled"], "trace", "trace.json")) as f:
+        text = f.read()
+    for name in ("nrc.frame", "nrc.primary", "nrc.train_set", "nrc.bounce",
+                 "nrc.track", "nrc.sync"):
+        assert json.dumps(name) in text, name
+    assert text.count(json.dumps("nrc.frame")) == 1
 
 
 def test_compare_accumulated_scores_the_screen(runs):
@@ -126,6 +137,7 @@ def test_profiler_leaves_the_state_and_writes_a_trace(tmp_path):
     assert set(stages) == STAGE_KEYS
     assert stages["total"] > 0
     assert stages["theoretical_fps"] == 1000.0 / stages["total"]
+    assert 0 < stages["stage_sum"] <= stages["total"]
     assert all(torch.equal(a, b) for a, b in zip(before, leaves()))
     assert state.nrc.step == 2 and state.blend_index == 2
     prim = {"primary_color": torch.ones(W * H, 4),
