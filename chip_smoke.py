@@ -12,7 +12,12 @@ SASS, which must exist),
 checks each kernel against its plain PyTorch version at the main paths'
 shapes and times it by its device time in torch.profiler beside its bound
 (K1/K2 also at 65,536 and 1,024 lanes; K4 also at widths 16-256 and at a
-depth beyond shared memory; K7 and K7' also at 20 levels), runs
+depth beyond shared memory; K7 and K7' also at 20 levels), checks the
+draw kernels of ``csrc/rng_kernels.cu`` (the RNG and draw glue) bit for
+bit against their plain versions on the lane counts, event counts,
+layouts, event bases, salts, states and masks of the frame path, times
+them beside their bounds and counts their launches in one 1080p frame of
+each benchmark cell's kind, runs
 ``cache.infer`` at the MLP widths and grid K3 does not take (the split
 encode: K7's packed forward, then K4) against the CPU, then drives the
 NRC frame on a procedural cloud with seeded random weights: three
@@ -222,6 +227,23 @@ KERNEL_NAMES = dict(pw_events="pw_events_kernel",
                     fused_mlp="fused_mlp_",
                     table_gather="table_gather_kernel",
                     small_table_lookup="small_table_lookup_kernel")
+# The draw kernels (csrc/rng_kernels.cu), each against its plain version
+# bit for bit on: a lone lane, a late train bounce (172 live lanes), the
+# 65,536 train rays and the 2,073,600 primary lanes of a 1080p frame;
+# events of one, of a ratio segment (8) and of a delta segment (16), in
+# both layouts; event bases 0, 112 and 2^31 - 1 (salt + k wraps past
+# 2^32); dead-lane advances of 1-3 draws.
+DRAW_LANES = (1, 172, 1 << 16, 1920 * 1080)
+DRAW_EVENTS = (1, 8, 16)
+DRAW_K0 = (0, 112, 2 ** 31 - 1)
+DRAW_STEPS = (1, 2, 3)
+DRAW_HOST_LANES = 172        # host microseconds a call, where host-bound
+DRAW_HOST_CALLS = 2000
+DRAW_KERNELS = dict(init_state="init_state_kernel",
+                    uniform="uniform_kernel",
+                    masked_uniform="masked_uniform_kernel",
+                    advance_dead="advance_dead_kernel",
+                    indexed_draws="indexed_draws_kernel")
 
 
 def gpu_line() -> str:
@@ -427,12 +449,12 @@ def build() -> dict:
     from nrc_hpm_tpu_torch.ops import (_build, fused_encode_mlp, fused_mlp,
                                        hash_grid_train, pw_kernels,
                                        table_gather)
-    from nrc_hpm_tpu_torch.utils import native
+    from nrc_hpm_tpu_torch.utils import native, rng
 
     t0 = time.perf_counter()
     jobs = [(pw_kernels._LIB, ("-fmad=false",)), (fused_encode_mlp._LIB, ()),
             (hash_grid_train._LIB, ()), (table_gather._LIB, ()),
-            (fused_mlp._LIB, ())]
+            (fused_mlp._LIB, ()), (rng._LIB, rng._FLAGS)]
 
     def run(job):
         so = _build.library_path(*job)
@@ -623,6 +645,226 @@ def pw_times(torch, pk, args, e_last) -> dict:
                   f"(device), wrapper call {time_ms(torch, fn):.4f} ms, "
                   f"bound {bnd[0]:.4f} ms ({bnd[1]}), clocks {sm_clock()}")
     return out
+
+
+def draw_cases(torch, dev, gen):
+    """(label, the wrapper's call, the plain version's call) of every draw
+    case: the chain's states are 0.0, 0.99999994 (the largest float below
+    1) and random bit patterns; the masks all true, all false and mixed;
+    the indexed draws every salt of the trackers."""
+    from nrc_hpm_tpu_torch import transmittance as tr
+    from nrc_hpm_tpu_torch.ops import pw_kernels as pk
+    from nrc_hpm_tpu_torch.utils import rng
+
+    salts = (pk.SALT_RATIO, pk.SALT_DELTA, pk.SALT_CTRL, tr.SALT_RR,
+             tr.SALT_RR0, tr.SALT_ACCEPT, tr.SALT_FALLBACK)
+    for n in DRAW_LANES:
+        bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                             dtype=torch.int32)
+        s = bits.view(torch.float32).clone()
+        s[:2] = torch.tensor([0.0, 0.99999994])[:n]
+        s = s.to(dev)
+        seed = bits.to(dev)
+        masks = dict(all=torch.ones(n, dtype=torch.bool, device=dev),
+                     none=torch.zeros(n, dtype=torch.bool, device=dev),
+                     mixed=(torch.rand(n, generator=gen) < 0.5).to(dev))
+        for v in (1.0, 3.0):
+            yield (f"uniform {n} lanes maxval {v}",
+                   lambda s=s, v=v: rng.uniform(s, v),
+                   lambda s=s, v=v: rng.uniform_plain(s, v))
+        for key, m in masks.items():
+            yield (f"masked_uniform {n} lanes mask {key}",
+                   lambda s=s, m=m: rng.masked_uniform(s, m, 3.0),
+                   lambda s=s, m=m: rng.masked_uniform_plain(s, m, 3.0))
+            for k in DRAW_STEPS:
+                yield (f"advance_dead {n} lanes mask {key} steps {k}",
+                       lambda s=s, m=m, k=k: (rng.advance_dead(s, m, k),),
+                       lambda s=s, m=m, k=k: (rng.advance_dead_plain(s, m,
+                                                                     k),))
+        for e in DRAW_EVENTS:
+            for lead in (False, True):
+                for k0 in DRAW_K0:
+                    for salt in salts:
+                        args = (seed, k0, e, salt, lead)
+                        yield (f"indexed_draws {n} lanes {e} events lead "
+                               f"{lead} k0 {k0} salt {salt:#x}",
+                               lambda a=args: (rng.indexed_draws(*a),),
+                               lambda a=args: (rng.indexed_draws_plain(*a),))
+        uv = torch.rand((n, 2), generator=gen).to(dev)
+        fr = torch.rand(4, generator=gen).to(dev)
+        yield (f"init_state {n} lanes",
+               lambda uv=uv, fr=fr: (rng.init_state(uv, fr),),
+               lambda uv=uv, fr=fr: (rng.init_state_plain(uv, fr),))
+
+
+def draw_wrappers() -> dict:
+    from nrc_hpm_tpu_torch.utils import rng
+
+    return {name: getattr(rng, name) for name in DRAW_KERNELS}
+
+
+def read_draws() -> dict:
+    return {k: w.launches for k, w in draw_wrappers().items()}
+
+
+def zero_draws() -> None:
+    for w in draw_wrappers().values():
+        w.launches = 0
+
+
+def host_us(torch, fn, calls: int = DRAW_HOST_CALLS) -> float:
+    """Host microseconds a call of ``fn`` (enqueue, no synchronization)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / calls
+
+
+def draw_frames(torch, dev, gpu) -> dict:
+    """Each draw wrapper's launches in one frame of each benchmark cell's
+    kind (1080p, AppConfig(): online at presets 4 and 5, frozen at 4),
+    after a warm-up frame; every wrapper but advance_dead must launch in
+    each.  Then one profiled online frame at preset 4: the draw kernels'
+    device ms and the frame's device operations."""
+    import quality_torch as qt
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.config import AppConfig
+    from nrc_hpm_tpu_torch.renderer import NrcRenderer
+    from nrc_hpm_tpu_torch.utils.procedural import cloud_density
+    from torch.profiler import ProfilerActivity, profile
+
+    density = cloud_density(seed=0)
+    per_frame = {}
+    for sid, train in ((4, True), (4, False), (5, True)):
+        cfg, vol = qt.preset_scene(sid, density, AppConfig(), device=dev)
+        r = NrcRenderer(cfg, vol)
+        cam = Camera.reference_camera(aspect=r.width / r.height, device=dev)
+        state = r.step(r.init_state(seed=0), cam, train=train)
+        torch.cuda.synchronize()
+        zero_draws()
+        zero_launches()
+        state = r.step(state, cam, train=train)
+        torch.cuda.synchronize()
+        label = f"preset {sid} {'online' if train else 'frozen'}"
+        draws, kernels = read_draws(), read_launches()
+        per_frame[label] = draws
+        print(f"draw launches a frame, {label}: {draws}; K1 "
+              f"{kernels['pw_events']}, K2 {kernels['pw_profile']}")
+        if any(n <= 0 for k, n in draws.items() if k != "advance_dead"):
+            raise AssertionError(f"draws {label}: a draw wrapper did not "
+                                 f"launch")
+        if sid == 4 and train:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                r.step(state, cam, train=train)
+                torch.cuda.synchronize()
+            ops = device_rows(torch, prof)
+            for name, kernel in DRAW_KERNELS.items():
+                rows = [(t, c) for key, t, c in ops
+                        if re.search(rf"\b{kernel}\b", key)]
+                print(f"profiled online frame preset 4, {name}: "
+                      f"{sum(c for _, c in rows)} launches, "
+                      f"{sum(t for t, _ in rows):.4f} ms of device time")
+            print(f"profiled online frame preset 4: "
+                  f"{sum(c for _, _, c in ops)} device operations, on {gpu}")
+        del r, state
+    return per_frame
+
+
+def draws_phase(torch, dev, gpu) -> list:
+    """The draw kernels (csrc/rng_kernels.cu) against their plain versions
+    bit for bit (torch.equal of the int32 views) on every case of
+    ``draw_cases``; no launch for no lanes; each kernel's device time at
+    the primary trace's 2,073,600 lanes (8 events) beside its bound and
+    the plain version's, and host microseconds a call at
+    DRAW_HOST_LANES lanes against the plain version's; then the launches
+    of a frame of each cell (``draw_frames``).  Returns a kernel row
+    each."""
+    from nrc_hpm_tpu_torch.utils import rng
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(18)
+    cases = 0
+    for label, fn, plain in draw_cases(torch, dev, gen):
+        got, want = fn(), plain()
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(
+                    g.contiguous().view(torch.int32),
+                    w.contiguous().view(torch.int32)):
+                raise AssertionError(f"{label}: not bitwise the plain "
+                                     f"version")
+        cases += 1
+    print(f"draws: {cases} cases bitwise equal to the plain versions, "
+          f"{time.perf_counter() - t0:.1f} s")
+    zero_draws()
+    none = torch.zeros(0, device=dev)
+    mask = torch.zeros(0, dtype=torch.bool, device=dev)
+    empty = [*rng.uniform(none), *rng.masked_uniform(none, mask),
+             rng.advance_dead(none, mask, 2),
+             rng.indexed_draws(torch.zeros((0, 3), dtype=torch.int32,
+                                           device=dev), 0, 8, 1, True),
+             rng.init_state(torch.zeros((0, 2), device=dev),
+                            torch.rand(4, device=dev))]
+    torch.cuda.synchronize()
+    if any(t.numel() for t in empty) or any(read_draws().values()):
+        raise AssertionError(f"draws: no lanes launched {read_draws()}")
+    print("draws: no lanes, no launch")
+
+    n = DRAW_LANES[-1]
+    s = torch.rand(n, generator=gen).to(dev)
+    alive = (torch.rand(n, generator=gen) < 0.5).to(dev)
+    seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                         dtype=torch.int32).to(dev)
+    uv = torch.rand((n, 2), generator=gen).to(dev)
+    fr = torch.rand(4, generator=gen).to(dev)
+    m = DRAW_HOST_LANES
+    # (wrapper, kernel call, plain call, bytes read and written at n
+    # lanes, the same calls at m lanes)
+    timed = (
+        ("uniform", lambda: rng.uniform(s), lambda: rng.uniform_plain(s),
+         12 * n, lambda: rng.uniform(s[:m]),
+         lambda: rng.uniform_plain(s[:m])),
+        ("masked_uniform", lambda: rng.masked_uniform(s, alive),
+         lambda: rng.masked_uniform_plain(s, alive), 13 * n,
+         lambda: rng.masked_uniform(s[:m], alive[:m]),
+         lambda: rng.masked_uniform_plain(s[:m], alive[:m])),
+        ("advance_dead", lambda: rng.advance_dead(s, alive, 1),
+         lambda: rng.advance_dead_plain(s, alive, 1), 9 * n,
+         lambda: rng.advance_dead(s[:m], alive[:m], 1),
+         lambda: rng.advance_dead_plain(s[:m], alive[:m], 1)),
+        ("indexed_draws", lambda: rng.indexed_draws(seed, 0, 8, 1, True),
+         lambda: rng.indexed_draws_plain(seed, 0, 8, 1, True),
+         (4 + 4 * 8) * n,
+         lambda: rng.indexed_draws(seed[:m], 0, 8, 1, True),
+         lambda: rng.indexed_draws_plain(seed[:m], 0, 8, 1, True)),
+        ("init_state", lambda: rng.init_state(uv, fr),
+         lambda: rng.init_state_plain(uv, fr), 12 * n + 16,
+         lambda: rng.init_state(uv[:m], fr),
+         lambda: rng.init_state_plain(uv[:m], fr)),
+    )
+    rows = []
+    for name, fn, plain, n_bytes, fn_m, plain_m in timed:
+        ms = device_ms(torch, fn, name, kernel=DRAW_KERNELS[name])
+        plain_ms = device_ms(torch, plain, name, kernel="")
+        us, plain_us = host_us(torch, fn_m), host_us(torch, plain_m)
+        row = kernel_row(f"draws.{name}", "nrc_hpm_tpu_torch/csrc/"
+                         "rng_kernels.cu", "none (XLA fuses the glue)", 0.0,
+                         ms, plain_ms, bound(n_bytes))
+        row.update(host_us=us, plain_host_us=plain_us, lanes=n)
+        print(f"draws.{name} {n} lanes: call {time_ms(torch, fn):.4f} ms "
+              f"(CUDA events), plain version's device time {plain_ms:.4f} "
+              f"ms; host {us:.2f} us a call at {m} lanes, plain "
+              f"{plain_us:.2f} us")
+        rows.append(row)
+    per_frame = draw_frames(torch, dev, gpu)
+    for row in rows:
+        row["launches"] = per_frame["preset 4 online"][
+            row["name"].split(".", 1)[1]]
+    print(f"draws phase: {time.perf_counter() - t0:.1f} s, on {gpu}")
+    return rows
 
 
 def k3_bound(n: int, spec, layers):
@@ -2794,6 +3036,7 @@ def main() -> int:
     print(f"procedural cloud {vol.dims}, macro {vol.macro_dims}: "
           f"{time.perf_counter() - t0:.1f} s")
     rows = kernel_phase(torch, dev, vol, cfg)
+    draw_rows = draws_phase(torch, dev, gpu)
     infer_routes_phase(torch, dev, cfg, torch.Generator().manual_seed(4))
     size = f"{cfg.render_width}x{cfg.render_height}"
     frame_phase(torch, dev, vol, cfg, gpu, 3, f"frozen {size}",
@@ -2835,7 +3078,7 @@ def main() -> int:
     bench_phase(torch, gpu)
     for row in rows:
         row["launches"] = launches[row["name"]]
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + draw_rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

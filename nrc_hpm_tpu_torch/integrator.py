@@ -238,9 +238,7 @@ def _jax_lanes(n: int, frac: float, count: int) -> int:
 def _advance_dead(state, alive, steps: int):
     """Advance the RNG chain of the lanes that are not alive by ``steps``
     draws (the JAX package's full-batch phases do so)."""
-    for _ in range(steps):
-        state = torch.where(alive, state, rng.uniform(state)[1])
-    return state
+    return rng.advance_dead(state, alive, steps)
 
 
 def trace_path(state, vol: Volume, lights: Lights, p: TraceParams, ro, rd,

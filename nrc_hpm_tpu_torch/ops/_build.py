@@ -88,8 +88,13 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_ptr(device: torch.device) -> int:
+    """The current stream of ``device`` (a ``cudaStream_t``, for a
+    ``c_void_p`` argument), read without building a ``torch.cuda.Stream``
+    (0.1 us a call against 5-7 on the H100's host)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def on_card(name: str, device: torch.device) -> bool:

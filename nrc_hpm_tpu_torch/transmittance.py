@@ -75,16 +75,13 @@ def _track_seed(state):
 def _indexed_draws(seed, k0: int, n: int, salt: int):
     """u_k = floatConstruct(hash(seed ^ hash(salt + k))), k in [k0, k0+n);
     seed (...,) int32 bits -> (..., n) float32."""
-    ks = torch.arange(n, dtype=torch.int64, device=seed.device) + k0
-    hk = rng.hash_u32(ks + salt)
-    s64 = seed.to(torch.int64) & rng.M32
-    return rng.float_construct(rng.hash_u32(s64[..., None] ^ hk))
+    return rng.indexed_draws(seed, k0, n, salt)
 
 
 @profiler.region("rng")
 def _indexed_draws_lead(seed, k0: int, n: int, salt: int):
     """_indexed_draws with the event axis leading: (n, ...) float32."""
-    return torch.movedim(_indexed_draws(seed, k0, n, salt), -1, 0)
+    return rng.indexed_draws(seed, k0, n, salt, lead=True)
 
 
 def _segments(plan_lanes: int, segment: int, plan, max_steps: int):
