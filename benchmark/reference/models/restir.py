@@ -1,0 +1,382 @@
+"""ReSTIR path-reservoir frames, plain: a frozen copy of the port's
+``models/restir.py``, every draw and tracker by its plain version.
+
+Upstream, ``JanSpindler/NRC-HPM-Renderer``'s four compute shaders
+(``data/shader/restir/local_init.comp``, ``temporal_reuse.comp``,
+``spatial_reuse.comp``, ``render.comp``) with the constants of
+``restir-constants.glsl``: ``PATH_VERTEX_COUNT`` 8, ``SPATIAL_KERNEL_SIZE``
+3, ``TEMPORAL_KERNEL_SIZE`` 2, which this module holds as its defaults (the
+reference's ``AppConfig`` has no ReSTIR group).  Per frame:
+
+1. ``_local_init``: per pixel, V candidate vertices from the volume entry
+   (a uniform step within 10% of the distance to the box exit, a
+   phase-sampled direction where the density is > 0), each stored as
+   (position, random probe direction); pixel info = (env background,
+   did-scatter).
+2. ``_temporal_reuse``: a streaming resampling over the T previous frames
+   x path suffixes; the chosen (slot, vertex) splices that old
+   reservoir's suffix into the current path.  The ring is indexed by
+   ``frame % T``.
+3. ``_spatial_reuse``: the same stream over the K^2 - 1 neighbours'
+   suffixes, spliced from the selected neighbour.
+4. ``_shade``: single-scatter lighting at each reservoir vertex with
+   density > 0 (the 3-argument ``trace_scene``: the stored probe direction
+   for the env term, the other lights' shadow segments ratio-tracked),
+   the HG phase factor at the exchange vertex, 8-step fixed transmittance
+   between vertices; the background where the transmittance stays 1.
+
+Departures from the shaders, all of them the port's:
+- weighted RIS (``mis_weights=True``, the port's default): each
+  candidate's weight is the phase reconnection factor the shading applies
+  at the exchange vertex, and the shading scales it by W = wsum / (M *
+  w_sel); the shaders splice uniformly, 1/stream (``mis_weights=False``,
+  the same draws);
+- the running blend: each frame enters a running mean with weight
+  1 / ``blend_index`` (``blend=False`` keeps the frame alone, as the
+  shaders show it);
+- the cloud: a procedural field (``harness/cloud.py``) stands for the
+  WDAS cloud the upstream renders.
+
+Two faults the port carries from the JAX package are copied as they are:
+``_temporal_reuse`` writes the current reservoir into the ring before it
+splices (at t = T - 1 the slot it splices from is the current one), and
+``_shade`` does not clamp W.
+
+``TraceParams.lowp`` (the benchmark's control) rounds the shading pass's
+path state (vertex, direction, radiance, transmittance) to bfloat16
+after every vertex, as ``trace_path`` rounds its state after every
+bounce.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .. import prng, rng
+from ..camera import Camera, pixel_rays
+from ..config import AppConfig
+from ..integrator import TraceParams, trace_scene
+from ..lights import LightFlags, Lights, lights_from_scene, sample_env_map
+from ..renderer import _blend
+from ..sampling import hg_phase, new_ray_dir
+from ..transmittance import fixed_step_transmittance
+from ..volume import Volume, find_entry_exit, get_density
+
+# restir-constants.glsl, and the port's weighted RIS
+PATH_VERTEX_COUNT = 8
+SPATIAL_KERNEL_SIZE = 3
+TEMPORAL_KERNEL_SIZE = 2
+MIS_WEIGHTS = True
+
+
+@dataclasses.dataclass
+class RestirState:
+    """All per-run ReSTIR buffers, under the port's field names."""
+
+    image: torch.Tensor           # (H, W, 4) rgb + transmittance
+    blend_index: int              # the running mean's next frame, from 1
+    pixel_info: torch.Tensor      # (H, W, 4) env background + did-scatter
+    stats: torch.Tensor           # (H, W, 2) stream index, exchange vertex
+    reservoir: torch.Tensor       # (H, W, V, 6) path vertices (pos, dir)
+    old_reservoirs: torch.Tensor  # (T, H, W, V, 6) previous-frame ring
+    frame: int                    # frame counter: the ring's index
+    key: torch.Tensor             # threefry key of the per-frame seeds
+
+
+class RestirRenderer:
+    """Path-reservoir ReSTIR on ``vol.device``, one ``step`` per frame,
+    blended into a running mean (``blend=False`` keeps the latest
+    frame)."""
+
+    def __init__(self, cfg: AppConfig, vol: Volume,
+                 lights: Optional[Lights] = None,
+                 width: Optional[int] = None, height: Optional[int] = None,
+                 blend: bool = True):
+        self.cfg = cfg
+        self.width = width or cfg.render_width
+        self.height = height or cfg.render_height
+        self.blend = blend
+        self.vol = vol
+        self.device = vol.device
+        self.lights = lights if lights is not None \
+            else lights_from_scene(cfg.scene, device=self.device)
+        self.params = TraceParams(flags=LightFlags.from_scene(cfg.scene),
+                                  max_track_steps=cfg.max_track_steps,
+                                  env_fixed16=cfg.env_fixed16)
+        self.n_vertices = PATH_VERTEX_COUNT
+        self.spatial_kernel = SPATIAL_KERNEL_SIZE
+        self.temporal_kernel = TEMPORAL_KERNEL_SIZE
+        self.mis_weights = MIS_WEIGHTS
+
+    def init_state(self, seed: int = 0) -> RestirState:
+        """Zero buffers, frame 0, blend index 1 and the key
+        ``PRNGKey(seed)``."""
+        h, w, v, t = (self.height, self.width, self.n_vertices,
+                      self.temporal_kernel)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32,
+                               device=self.device)
+
+        return RestirState(
+            image=zeros(h, w, 4), blend_index=1, pixel_info=zeros(h, w, 4),
+            stats=zeros(h, w, 2), reservoir=zeros(h, w, v, 6),
+            old_reservoirs=zeros(t, h, w, v, 6), frame=0,
+            key=prng.prng_key(seed))
+
+    def step(self, state: RestirState, camera: Camera,
+             record: Optional[dict] = None) -> RestirState:
+        """One frame, its seed drawn from a split of ``state.key``;
+        ``record["out"]`` receives the frame's own image."""
+        key, sub = prng.split(state.key)
+        H, W, V = self.height, self.width, self.n_vertices
+        vol, g = self.vol, self.vol.g
+        ro, rd, frag_uv = pixel_rays(camera, W, H)
+        ro = ro.expand(rd.shape)
+        # every stage reseeds from the same per-frame uniform
+        seeds = rng.init_state(frag_uv, rng.frame_random(sub))
+
+        reservoir, pixel_info, stats = _local_init(
+            seeds, vol, self.lights, ro, rd, state.reservoir, V)
+        # the per-frame RIS accumulators (wsum, w_sel)
+        mis = torch.zeros(stats.shape[:-1] + (2,), dtype=torch.float32,
+                          device=stats.device)
+        reservoir, old_reservoirs, stats, mis = _temporal_reuse(
+            seeds, reservoir, state.old_reservoirs, stats, mis, pixel_info,
+            state.frame, V, self.temporal_kernel, g, self.mis_weights)
+        reservoir, stats, mis = _spatial_reuse(
+            seeds, reservoir, stats, mis, pixel_info, V, self.spatial_kernel,
+            H, W, g, self.mis_weights)
+        out = _shade(seeds, vol, self.lights, self.params, reservoir, stats,
+                     pixel_info, V, mis)
+        if record is not None:
+            record["out"] = out
+        image, blend_index = _blend(state, out, self.blend)
+        return RestirState(image=image, blend_index=blend_index,
+                           pixel_info=pixel_info, stats=stats,
+                           reservoir=reservoir,
+                           old_reservoirs=old_reservoirs,
+                           frame=state.frame + 1, key=key)
+
+
+def _normalized(v):
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                           min=1e-12)
+
+
+def _local_init(rng_state, vol: Volume, lights: Lights, ro, rd,
+                prev_reservoir, n_vertices: int):
+    """V candidate vertices from the box entry, each (position, a fresh
+    random probe direction); pixels whose ray misses the box keep their
+    previous reservoir.  Returns (reservoir, pixel_info, stats)."""
+    cur, _, hit = find_entry_exit(vol, ro, rd)
+    cur_dir = rd
+    did_scatter = torch.zeros_like(hit)
+    verts = []
+    for _ in range(n_vertices):
+        scat = hit & (get_density(vol, cur) > 0.0)
+        did_scatter = did_scatter | scat
+        nd, rng_state = new_ray_dir(rng_state, cur_dir, vol.g,
+                                    phase_sampling=True, active=scat)
+        cur_dir = torch.where(scat[..., None], nd, cur_dir)
+        probe, rng_state = new_ray_dir(rng_state, cur_dir, vol.g,
+                                       phase_sampling=False, active=hit)
+        verts.append(torch.cat([cur, probe], dim=-1))
+        _, exit_pt, _ = find_entry_exit(vol, cur, cur_dir)
+        max_dist = torch.linalg.vector_norm(exit_pt - cur, dim=-1) * 0.1
+        u, rng_state = rng.masked_uniform(rng_state, hit)
+        cur = cur + cur_dir * (u * max_dist)[..., None]
+
+    reservoir = torch.where(hit[..., None, None], torch.stack(verts, dim=-2),
+                            prev_reservoir)
+    did = (hit & did_scatter).to(torch.float32)
+    pixel_info = torch.cat([sample_env_map(lights.env, rd), did[..., None]],
+                           dim=-1)
+    # (stream index 1, exchange vertex 0)
+    stats = torch.stack([torch.ones_like(did), torch.zeros_like(did)],
+                        dim=-1)
+    return reservoir, pixel_info, stats
+
+
+def _splice_weight(own_res, q, v: int, g: float):
+    """hg_phase of the angle between the own prefix's incoming direction
+    at vertex v - 1 and the connection to ``q``: the factor the shading
+    applies at the exchange vertex."""
+    r = own_res[..., v - 1, :3]
+    if v >= 2:
+        last_dir = _normalized(r - own_res[..., v - 2, :3])
+    else:
+        last_dir = torch.zeros_like(r)
+    conn = _normalized(q - r)
+    return hg_phase(torch.sum(last_dir * -conn, dim=-1), g)
+
+
+def _temporal_reuse(rng_state, reservoir, old_reservoirs, stats, mis,
+                    pixel_info, frame: int, n_vertices: int,
+                    temporal_kernel: int, g: float, weighted: bool):
+    """The stream over (temporal slot, suffix start vertex) on the
+    scattered pixels, then the chosen old suffix spliced in (nothing on
+    frame 0).  Returns (reservoir, old_reservoirs, stats, mis); the ring
+    is a new one with the current reservoir in slot frame % T where a
+    pixel resampled."""
+    T = temporal_kernel
+    scat = pixel_info[..., 3] == 1.0
+    stream = stats[..., 0]
+    wsum, w_sel = mis[..., 0], mis[..., 1]
+    t_idx = torch.full(scat.shape, -1, dtype=torch.int32, device=scat.device)
+    v_idx = torch.zeros_like(t_idx)
+    ones = torch.ones_like(wsum)
+    for t in range(T):
+        if weighted:
+            bank = old_reservoirs[(frame - (t + 1)) % T]
+            valid_t = float(frame > t)
+        for v in range(1, n_vertices):
+            w = _splice_weight(reservoir, bank[..., v, :3], v, g) * valid_t \
+                if weighted else ones
+            wsum_new = wsum + w
+            prob = w / torch.clamp(wsum_new, min=1e-20)
+            u, rng_state = rng.masked_uniform(rng_state, scat)
+            sel = scat & (u < prob)
+            t_idx = torch.where(sel, t, t_idx)
+            v_idx = torch.where(sel, v, v_idx)
+            w_sel = torch.where(sel, w, w_sel)
+            wsum = torch.where(scat, wsum_new, wsum)
+            stream = torch.where(scat, stream + 1.0, stream)
+    stats = torch.stack([torch.where(scat, stream, stats[..., 0]),
+                         torch.where(scat, v_idx.to(torch.float32),
+                                     stats[..., 1])], dim=-1)
+    mis = torch.stack([wsum, w_sel], dim=-1)
+
+    do = scat & (t_idx >= 0) & (frame > 0)
+    t_back = torch.clamp(t_idx, max=frame - 1) + 1
+    last_slot = torch.remainder(frame - t_back, T)
+    cur_slot = frame % T
+    # the current reservoir into the ring BEFORE the splice gathers from it
+    cur_bank = torch.where(do[..., None, None], reservoir,
+                           old_reservoirs[cur_slot])
+    old_reservoirs = old_reservoirs.index_copy(
+        0, torch.tensor([cur_slot], device=reservoir.device), cur_bank[None])
+    index = last_slot.to(torch.int64)[None, ..., None, None].expand(
+        (1,) + reservoir.shape)
+    sel_old = torch.gather(old_reservoirs, 0, index)[0]
+    vmask = torch.arange(n_vertices, device=v_idx.device) >= v_idx[..., None]
+    take = do[..., None] & vmask
+    reservoir = torch.where(take[..., None], sel_old, reservoir)
+    return reservoir, old_reservoirs, stats, mis
+
+
+def _spatial_reuse(rng_state, reservoir, stats, mis, pixel_info,
+                   n_vertices: int, spatial_kernel: int, height: int,
+                   width: int, g: float, weighted: bool):
+    """The same stream over the in-bounds scattered neighbours' suffixes
+    (dx, then dy, then the vertex), then the selected neighbour's suffix
+    spliced in from the reservoir as it entered.  Returns (reservoir,
+    stats, mis)."""
+    scat = pixel_info[..., 3] == 1.0
+    stream = stats[..., 0]
+    wsum, w_sel = mis[..., 0], mis[..., 1]
+    k_max = spatial_kernel // 2
+    dev = reservoir.device
+    yy = torch.arange(height, device=dev)[:, None]
+    xx = torch.arange(width, device=dev)[None, :]
+    pos_all = reservoir[..., :3]
+    ones = torch.ones_like(wsum)
+
+    sel_dx = torch.zeros(scat.shape, dtype=torch.int32, device=dev)
+    sel_dy = torch.zeros_like(sel_dx)
+    v_idx = torch.zeros_like(sel_dx)
+    found = torch.zeros_like(scat)
+    for dx in range(-k_max, k_max + 1):
+        for dy in range(-k_max, k_max + 1):
+            if dx == 0 and dy == 0:
+                continue
+            ny, nx = yy + dy, xx + dx
+            in_bounds = (ny >= 0) & (ny < height) & (nx >= 0) & (nx < width)
+            nb_scat = in_bounds & (
+                pixel_info[ny.clamp(0, height - 1), nx.clamp(0, width - 1),
+                           3] == 1.0)
+            ok = scat & nb_scat
+            if weighted:
+                # the wrapped border rows have ok False
+                nb_pos = torch.roll(pos_all, shifts=(-dy, -dx), dims=(0, 1))
+            for v in range(1, n_vertices):
+                w = _splice_weight(reservoir, nb_pos[..., v, :], v, g) \
+                    if weighted else ones
+                wsum_new = torch.where(ok, wsum + w, wsum)
+                prob = w / torch.clamp(wsum_new, min=1e-20)
+                u, rng_state = rng.masked_uniform(rng_state, ok)
+                sel = ok & (u < prob)
+                sel_dx = torch.where(sel, dx, sel_dx)
+                sel_dy = torch.where(sel, dy, sel_dy)
+                v_idx = torch.where(sel, v, v_idx)
+                w_sel = torch.where(sel, w, w_sel)
+                found = found | sel
+                wsum = wsum_new
+                stream = torch.where(ok, stream + 1.0, stream)
+    stats = torch.stack([torch.where(scat, stream, stats[..., 0]),
+                         torch.where(found, v_idx.to(torch.float32),
+                                     stats[..., 1])], dim=-1)
+    mis = torch.stack([wsum, w_sel], dim=-1)
+
+    gy = (yy + sel_dy).clamp(0, height - 1)
+    gx = (xx + sel_dx).clamp(0, width - 1)
+    nb_res = reservoir[gy, gx]
+    vmask = torch.arange(n_vertices, device=dev) >= v_idx[..., None]
+    take = found[..., None] & vmask
+    reservoir = torch.where(take[..., None], nb_res, reservoir)
+    return reservoir, stats, mis
+
+
+def _lowp(*ts):
+    return tuple(t.to(torch.bfloat16).to(torch.float32) for t in ts)
+
+
+def _shade(rng_state, vol: Volume, lights: Lights, p: TraceParams,
+           reservoir, stats, pixel_info, n_vertices: int, mis):
+    """Single-scatter lighting along the reservoir path with 8-step
+    inter-vertex transmittance, the HG phase factor at the exchange
+    vertex scaled by W = wsum / (M * w_sel).  Returns the (H, W, 4) rgb +
+    transmittance."""
+    scat_px = pixel_info[..., 3] == 1.0
+    exchange = stats[..., 1].to(torch.int32)
+    wsum, w_sel = mis[..., 0], mis[..., 1]
+    m_count = torch.clamp(stats[..., 0] - 1.0, min=1.0)
+    ris_w = torch.where(w_sel > 0.0,
+                        wsum / (m_count * torch.clamp(w_sel, min=1e-20)),
+                        1.0)
+
+    last = reservoir[..., 0, :3]
+    last_dir = torch.zeros_like(last)
+    light = torch.zeros_like(last)
+    trans = torch.ones_like(last[..., 0])
+    total_phase = torch.ones_like(trans)
+    for i in range(1, n_vertices):
+        vp = reservoir[..., i, :3]
+        probe = reservoir[..., i, 3:]
+        cur_dir = _normalized(vp - last)
+        dens = get_density(vol, vp)
+        m = scat_px & (dens > 0.0)
+        scene, rng_state = trace_scene(rng_state, vol, lights, p, vp,
+                                       cur_dir, m, env_dir=probe)
+        ph = torch.where(
+            exchange == i,
+            hg_phase(torch.sum(last_dir * -cur_dir, dim=-1), vol.g) * ris_w,
+            1.0)
+        total_phase = torch.where(m, total_phase * ph, total_phase)
+        s_int = dens[..., None] * scene * total_phase[..., None]
+        t_r = fixed_step_transmittance(vol, vp, last, 8)
+        light = torch.where(m[..., None], light + trans[..., None] * s_int,
+                            light)
+        trans = torch.where(m, trans * t_r, trans)
+        last = torch.where(m[..., None], vp, last)
+        last_dir = torch.where(m[..., None], cur_dir, last_dir)
+        if p.lowp:
+            last, last_dir, light, trans = _lowp(last, last_dir, light,
+                                                 trans)
+
+    # nothing shaded (transmittance 1): the background
+    rgb = torch.where((trans == 1.0)[..., None], pixel_info[..., :3], light)
+    return torch.cat([rgb, trans[..., None]], dim=-1)

@@ -2433,7 +2433,8 @@ def small_restir_check(torch, dev) -> None:
     data = np.random.RandomState(42).rand(8, 8, 8).astype(np.float32)
     runs = []
     for d in (dev, torch.device("cpu")):
-        r = RestirRenderer(cfg, Volume.from_dense(data, 0.6, 0.8, device=d))
+        r = RestirRenderer(cfg, Volume.from_dense(data, 0.6, 0.8, device=d),
+                           blend=False)
         cam = Camera.reference_camera(aspect=w / h, device=d)
         st, seq = r.init_state(0), []
         for _ in range(SMALL_RESTIR_FRAMES):

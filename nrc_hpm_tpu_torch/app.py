@@ -225,7 +225,8 @@ def _run(args, device, group) -> int:
     restir_renderer = restir_state = None
     if args.renderer == "restir" and lead:
         from .models.restir import RestirRenderer
-        restir_renderer = RestirRenderer(cfg, device=device)
+        # each frame alone, as the JAX app shows it
+        restir_renderer = RestirRenderer(cfg, device=device, blend=False)
         restir_state = restir_renderer.init_state(0)
 
     # opened only now, so a run that fails to load its scene leaves the
@@ -263,11 +264,8 @@ def _run(args, device, group) -> int:
                 if mc_state is not None:
                     mc_state = reset_accumulation(mc_state)
                 if restir_state is not None:
-                    # ReSTIR keeps no blend accumulation; a camera cut
-                    # invalidates its temporal-reuse history instead
-                    restir_state = dataclasses.replace(
-                        restir_state, old_reservoirs=torch.zeros_like(
-                            restir_state.old_reservoirs), frame=0)
+                    # also its temporal-reuse ring and frame counter
+                    restir_state = reset_accumulation(restir_state)
         if nrc_renderer is not None:
             nrc_state = nrc_renderer.step(nrc_state, cam, train=train)
         if mc_renderer is not None:

@@ -36,8 +36,20 @@ splices, so at t = K - 1 the slot it splices from is the current one
 biases ``mis_weights=True``; and ``_shade`` does not clamp W.
 
 Every stage reseeds from the same per-frame uniform, and only the lanes
-a stage masks in draw.  ``frame`` is a host integer, so no stage reads the
-card back.
+a stage masks in draw.  ``frame`` is a host integer, so the ring is
+indexed without reading the card back; the frame's host syncs (the
+copies to the card of the seed, the probe directions' fallback axis and
+the ring slot's index, and the shadow trackers' compaction) each sit in a
+``profiler.sync``.
+
+As ``McRenderer`` and ``NrcRenderer`` do, ``step`` blends each frame into
+a running mean with weight 1 / ``blend_index`` (``blend=False`` keeps only
+the latest frame, as the JAX package does); ``frame`` stays the temporal
+ring's index.  While ``torch.profiler`` records, ``step`` is an
+``nrc.frame`` span holding the spans ``restir.local_init``,
+``restir.temporal``, ``restir.spatial`` and ``restir.shade``, each with
+the lanes (H x W), ``V``, ``T``, ``K`` and the ``candidates`` it streams a
+lane.
 """
 
 from __future__ import annotations
@@ -47,10 +59,12 @@ from typing import Optional
 
 import torch
 
+from .. import profiler
 from ..camera import Camera, pixel_rays
 from ..config import AppConfig
 from ..integrator import TraceParams, trace_scene
 from ..lights import LightFlags, Lights, lights_from_scene, sample_env_map
+from ..renderer import _blend, _volume_from_config
 from ..sampling import hg_phase, new_ray_dir
 from ..transmittance import fixed_step_transmittance
 from ..utils import prng, rng
@@ -62,25 +76,28 @@ class RestirState:
     """All per-run ReSTIR buffers."""
 
     image: torch.Tensor           # (H, W, 4) rgb + transmittance
+    blend_index: int              # the running mean's next frame, from 1
     pixel_info: torch.Tensor      # (H, W, 4) env background + did-scatter
     stats: torch.Tensor           # (H, W, 2) stream index, exchange vertex
     reservoir: torch.Tensor       # (H, W, V, 6) path vertices (pos, dir)
     old_reservoirs: torch.Tensor  # (T, H, W, V, 6) previous-frame ring
-    frame: int                    # frame counter
+    frame: int                    # frame counter: the ring's index
     key: torch.Tensor             # threefry key of the per-frame seeds
 
 
 class RestirRenderer:
     """Volumetric path-reservoir ReSTIR on ``vol.device``: local init,
-    temporal reuse, spatial reuse and shading, one ``step`` per frame.
-    Without ``vol`` it loads the configuration's cloud onto ``device``."""
+    temporal reuse, spatial reuse and shading, one ``step`` per frame,
+    blended into a running mean (``blend=False`` keeps only the latest
+    frame).  Without ``vol`` it loads the configuration's cloud onto
+    ``device``."""
 
     def __init__(self, cfg: AppConfig, vol: Optional[Volume] = None,
                  lights: Optional[Lights] = None,
                  width: Optional[int] = None, height: Optional[int] = None,
-                 device="cuda"):
-        from ..renderer import _volume_from_config
+                 device="cuda", blend: bool = True):
         self.cfg = cfg
+        self.blend = blend
         self.width = width or cfg.render_width
         self.height = height or cfg.render_height
         self.vol = vol if vol is not None \
@@ -98,7 +115,8 @@ class RestirRenderer:
         self.mis_weights = cfg.restir.mis_weights
 
     def init_state(self, seed: int = 0) -> RestirState:
-        """Zero buffers, frame 0 and the key ``PRNGKey(seed)``."""
+        """Zero buffers, frame 0, blend index 1 and the key
+        ``PRNGKey(seed)``."""
         h, w, v, t = (self.height, self.width, self.n_vertices,
                       self.temporal_kernel)
 
@@ -107,24 +125,29 @@ class RestirRenderer:
                                device=self.device)
 
         return RestirState(
-            image=zeros(h, w, 4), pixel_info=zeros(h, w, 4),
+            image=zeros(h, w, 4), blend_index=1, pixel_info=zeros(h, w, 4),
             stats=zeros(h, w, 2), reservoir=zeros(h, w, v, 6),
             old_reservoirs=zeros(t, h, w, v, 6), frame=0,
             key=prng.prng_key(seed))
 
     def step(self, state: RestirState, camera: Camera) -> RestirState:
         """One frame, its seed drawn from a split of ``state.key``."""
-        return _restir_step(
-            state, camera, self.vol, self.lights, params=self.params,
-            width=self.width, height=self.height, n_vertices=self.n_vertices,
-            spatial_kernel=self.spatial_kernel,
-            temporal_kernel=self.temporal_kernel,
-            mis_weights=self.mis_weights)
+        with profiler.span(profiler.FRAME):
+            out, st = _restir_step(
+                state, camera, self.vol, self.lights, params=self.params,
+                width=self.width, height=self.height,
+                n_vertices=self.n_vertices,
+                spatial_kernel=self.spatial_kernel,
+                temporal_kernel=self.temporal_kernel,
+                mis_weights=self.mis_weights)
+            image, blend_index = _blend(state, out, self.blend)
+            return dataclasses.replace(st, image=image,
+                                       blend_index=blend_index)
 
     def render(self, camera: Camera, frames: int, seed: int = 0
                ) -> torch.Tensor:
-        """``frames`` frames from ``init_state(seed)``; returns the last
-        (H, W, 4) image."""
+        """``frames`` frames from ``init_state(seed)``; returns the (H, W,
+        4) image (with ``blend``, their running mean)."""
         state = self.init_state(seed)
         for _ in range(frames):
             state = self.step(state, camera)
@@ -239,8 +262,9 @@ def _temporal_reuse(rng_state, reservoir, old_reservoirs, stats, mis,
     # BEFORE the splice gathers from it
     cur_bank = torch.where(do[..., None, None], reservoir,
                            old_reservoirs[cur_slot])
-    old_reservoirs = old_reservoirs.index_copy(
-        0, torch.tensor([cur_slot], device=reservoir.device), cur_bank[None])
+    with profiler.sync("restir.ring_slot"):   # a copy from host memory
+        slot = torch.tensor([cur_slot], device=reservoir.device)
+    old_reservoirs = old_reservoirs.index_copy(0, slot, cur_bank[None])
     # the suffix [v_idx:] from each pixel's selected slot
     index = last_slot.to(torch.int64)[None, ..., None, None].expand(
         (1,) + reservoir.shape)
@@ -372,29 +396,40 @@ def _shade(rng_state, vol: Volume, lights: Lights, p: TraceParams,
 def _restir_step(state: RestirState, camera: Camera, vol: Volume,
                  lights: Lights, *, params: TraceParams, width: int,
                  height: int, n_vertices: int, spatial_kernel: int,
-                 temporal_kernel: int,
-                 mis_weights: bool = False) -> RestirState:
+                 temporal_kernel: int, mis_weights: bool = False):
+    """The frame's own (H, W, 4) image and the state after it (its image
+    and blend index still the old state's)."""
     key, sub = prng.split(state.key)
     frame_rand = rng.frame_random(sub)
     ro, rd, frag_uv = pixel_rays(camera, width, height)
     ro = ro.expand(rd.shape)
     # every stage reseeds from the same per-frame uniform
     seeds = rng.init_state(frag_uv, frame_rand)
+    dims = dict(lanes=height * width, V=n_vertices, T=temporal_kernel,
+                K=spatial_kernel)
 
-    reservoir, pixel_info, stats, _ = _local_init(
-        seeds, vol, lights, ro, rd, state.reservoir, n_vertices)
+    with profiler.span("restir.local_init", candidates=n_vertices, **dims):
+        reservoir, pixel_info, stats, _ = _local_init(
+            seeds, vol, lights, ro, rd, state.reservoir, n_vertices)
     # the per-frame RIS accumulators (wsum, w_sel)
     mis = torch.zeros(stats.shape[:-1] + (2,), dtype=torch.float32,
                       device=stats.device)
-    reservoir, old_reservoirs, stats, mis, _ = _temporal_reuse(
-        seeds, reservoir, state.old_reservoirs, stats, mis, pixel_info,
-        state.frame, n_vertices, temporal_kernel, g=vol.g,
-        weighted=mis_weights)
-    reservoir, stats, mis, _ = _spatial_reuse(
-        seeds, reservoir, stats, mis, pixel_info, n_vertices, spatial_kernel,
-        height, width, g=vol.g, weighted=mis_weights)
-    image, _ = _shade(seeds, vol, lights, params, reservoir, stats,
-                      pixel_info, n_vertices, mis=mis)
-    return RestirState(image=image, pixel_info=pixel_info, stats=stats,
-                       reservoir=reservoir, old_reservoirs=old_reservoirs,
-                       frame=state.frame + 1, key=key)
+    with profiler.span("restir.temporal",
+                       candidates=temporal_kernel * (n_vertices - 1),
+                       **dims):
+        reservoir, old_reservoirs, stats, mis, _ = _temporal_reuse(
+            seeds, reservoir, state.old_reservoirs, stats, mis, pixel_info,
+            state.frame, n_vertices, temporal_kernel, g=vol.g,
+            weighted=mis_weights)
+    with profiler.span("restir.spatial",
+                       candidates=(spatial_kernel ** 2 - 1)
+                       * (n_vertices - 1), **dims):
+        reservoir, stats, mis, _ = _spatial_reuse(
+            seeds, reservoir, stats, mis, pixel_info, n_vertices,
+            spatial_kernel, height, width, g=vol.g, weighted=mis_weights)
+    with profiler.span("restir.shade", candidates=n_vertices - 1, **dims):
+        image, _ = _shade(seeds, vol, lights, params, reservoir, stats,
+                          pixel_info, n_vertices, mis=mis)
+    return image, dataclasses.replace(
+        state, pixel_info=pixel_info, stats=stats, reservoir=reservoir,
+        old_reservoirs=old_reservoirs, frame=state.frame + 1, key=key)

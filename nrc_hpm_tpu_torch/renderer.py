@@ -445,7 +445,14 @@ def path_targets(cache: NeuralRadianceCache, nrc: NrcState, vol: Volume,
 
 
 def reset_accumulation(state):
-    """A camera change clears the temporal accumulation (an ``McState``
-    or an ``NrcRenderState``)."""
-    return dataclasses.replace(state, image=torch.zeros_like(state.image),
-                               blend_index=1)
+    """A camera change clears the temporal accumulation (an ``McState``,
+    an ``NrcRenderState`` or a ``RestirState``, whose temporal-reuse ring
+    and frame counter restart too)."""
+    from .models.restir import RestirState
+    state = dataclasses.replace(state, image=torch.zeros_like(state.image),
+                                blend_index=1)
+    if isinstance(state, RestirState):
+        state = dataclasses.replace(
+            state, old_reservoirs=torch.zeros_like(state.old_reservoirs),
+            frame=0)
+    return state

@@ -565,7 +565,8 @@ def restir(cfg: AppConfig | None = None, width: int = RESTIR_SIZE[0],
     for label, mis in (("restir", True), ("restir_uniform", False)):
         rcfg = dataclasses.replace(cfg, restir=dataclasses.replace(
             cfg.restir, mis_weights=mis))
-        r = RestirRenderer(rcfg, vol)
+        # the last frame alone, as experiments/restir_960.py scores it
+        r = RestirRenderer(rcfg, vol, blend=False)
         with launched(rec, label):
             images[label] = timed(label, r, r.init_state(0))
     mc = McRenderer(cfg, vol)

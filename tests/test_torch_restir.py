@@ -136,7 +136,9 @@ def _run_both(v=V, mis=True, scene=4, frames=FRAMES):
     state."""
     jc, tc = _cfgs(v, mis, scene)
     jv, tv = _volumes()
-    jr, tr = jre.RestirRenderer(jc, vol=jv), tre.RestirRenderer(tc, tv)
+    # the JAX renderer shows each frame alone
+    jr = jre.RestirRenderer(jc, vol=jv)
+    tr = tre.RestirRenderer(tc, tv, blend=False)
     jcm, tcm = _cams()
     js, ts = jr.init_state(0), tr.init_state(0)
     out = [(_np_state(js), ts)]
@@ -212,11 +214,11 @@ def test_env_only_shading_tracks_nothing(monkeypatch, runs):
                             calls.append(_n) or _fn(*a, **k))
     _, tc = _cfgs(scene=5)
     _, tv = _volumes()
-    tr = tre.RestirRenderer(tc, tv)
+    tr = tre.RestirRenderer(tc, tv, blend=False)
     img = tr.render(_cams()[1], frames=2).numpy()
     assert calls == [] and np.isfinite(img).all()
     _, tc = _cfgs(scene=4)
-    tre.RestirRenderer(tc, tv).render(_cams()[1], frames=1)
+    tre.RestirRenderer(tc, tv, blend=False).render(_cams()[1], frames=1)
     assert set(calls) == {"pw_profile", "pw_events"}
 
 
@@ -432,7 +434,7 @@ def test_restir_renderer_api():
     configuration's cloud loaded when no volume is given."""
     _, tc = _cfgs()
     _, tv = _volumes()
-    tr = tre.RestirRenderer(tc, tv, width=16, height=9)
+    tr = tre.RestirRenderer(tc, tv, width=16, height=9, blend=False)
     st = tr.init_state(7)
     assert st.frame == 0 and st.reservoir.shape == (9, 16, V, 6)
     assert st.stats.shape == (9, 16, 2) and not st.image.any()
@@ -441,4 +443,4 @@ def test_restir_renderer_api():
     a = tr.render(cam, frames=2, seed=1)
     assert torch.equal(a, tr.step(tr.step(tr.init_state(1), cam), cam).image)
     with pytest.raises(FileNotFoundError):
-        tre.RestirRenderer(tc, device="cpu")
+        tre.RestirRenderer(tc, device="cpu", blend=False)
