@@ -49,9 +49,14 @@ same seed.  Then the Monte-Carlo path: three 1080p
 kernel) and one under torch.profiler; 48x27 MC frames in each tracking
 mode (``pw``, ``fast``, ``seq``) against the CPU; the ReSTIR path: four
 1080p ``RestirRenderer(AppConfig())`` frames (K1/K2 in the shading pass's
-shadow tracks and no other kernel, the peak memory), one under
-torch.profiler, one more frame's first K1/K2 calls against the plain
-versions, 48x27 ReSTIR frames against the CPU; the triangle-model
+shadow tracks, the two reuse kernels and no other kernel, the peak
+memory), one under torch.profiler, one more frame's first K1/K2 calls
+against the plain versions, 48x27 ReSTIR frames against the CPU, then
+the reuse kernels of ``csrc/restir_reuse.cu`` bit for bit against their
+plain versions on the stage calls of 1080p frames 0-3 (weighted and
+uniform), of small border-heavy images at other vertex, ring and
+neighbourhood sizes and on random inputs (no stage and no frame writes
+its inputs), timed at 1080p beside their bounds; the triangle-model
 renderer on a textured cube it writes as OBJ + MTL + PNGs (1080p timed,
 192x108 against the CPU); the port's own golden
 (``generate_golden`` at 192x108, 64 frames of 64-bounce MC, under the
@@ -217,7 +222,8 @@ LOOKUP_OPS, INTERVAL_OPS, EVENT_OPS, LEVEL_OPS = 30, 14, 60, 150
 # kernels whose every instance must not spill registers
 NO_SPILL = ("pw_events_kernel", "pw_profile_kernel", "fused_mlp_resident",
             "fused_mlp_stream", "hash_grid_train_fwd_kernel",
-            "hash_grid_train_bwd_kernel")
+            "hash_grid_train_bwd_kernel", "temporal_reuse_kernel",
+            "spatial_reuse_kernel")
 # the kernel of each wrapper, by the name the profiler shows
 KERNEL_NAMES = dict(pw_events="pw_events_kernel",
                     pw_profile="pw_profile_kernel",
@@ -226,7 +232,9 @@ KERNEL_NAMES = dict(pw_events="pw_events_kernel",
                     hash_grid_train_bwd="hash_grid_train_bwd_kernel",
                     fused_mlp="fused_mlp_",
                     table_gather="table_gather_kernel",
-                    small_table_lookup="small_table_lookup_kernel")
+                    small_table_lookup="small_table_lookup_kernel",
+                    temporal_reuse="temporal_reuse_kernel",
+                    spatial_reuse="spatial_reuse_kernel")
 # The draw kernels (csrc/rng_kernels.cu), each against its plain version
 # bit for bit on: a lone lane, a late train bounce (172 live lanes), the
 # 65,536 train rays and the 2,073,600 primary lanes of a 1080p frame;
@@ -320,12 +328,16 @@ def device_ms(torch, fn, name: str, reps: int = REPS, kernel=None,
                 fn()
             torch.cuda.synchronize()
         want = KERNEL_NAMES[name] if kernel is None else kernel
-        ms = sum(t for key, t, _ in device_rows(torch, prof) if want in key)
+        rows = device_rows(torch, prof)
+        ms = sum(t for key, t, _ in rows if want in key)
         if ms > 0:
             return ms / reps
     if optional:
         return None
-    raise AssertionError(f"{name}: the profiler saw no device time")
+    seen = "; ".join(f"{k[:80]} {t:.3f} ms x{c}"
+                     for k, t, c in sorted(rows, key=lambda r: -r[1])[:6])
+    raise AssertionError(f"{name}: the profiler saw no device time in "
+                         f"{want!r}; it saw {seen or 'nothing'}")
 
 
 def bound(n_bytes: float, bf16_ops: float = 0.0, f32_ops: float = 0.0):
@@ -448,13 +460,14 @@ def build() -> dict:
     cores.  Returns the library path of each source."""
     from nrc_hpm_tpu_torch.ops import (_build, fused_encode_mlp, fused_mlp,
                                        hash_grid_train, pw_kernels,
-                                       table_gather)
+                                       restir_reuse, table_gather)
     from nrc_hpm_tpu_torch.utils import native, rng
 
     t0 = time.perf_counter()
     jobs = [(pw_kernels._LIB, ("-fmad=false",)), (fused_encode_mlp._LIB, ()),
             (hash_grid_train._LIB, ()), (table_gather._LIB, ()),
-            (fused_mlp._LIB, ()), (rng._LIB, rng._FLAGS)]
+            (fused_mlp._LIB, ()), (rng._LIB, rng._FLAGS),
+            (restir_reuse._LIB, restir_reuse._FLAGS)]
 
     def run(job):
         so = _build.library_path(*job)
@@ -504,7 +517,8 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, bnd,
                library_ms=None) -> dict:
     bound_ms, bound_by = bnd
     lib = "" if library_ms is None else f", library call {library_ms:.4f} ms"
-    print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+    plain = "not measured" if plain_ms is None else f"{plain_ms:.3f} ms"
+    print(f"{name}: kernel {ms:.4f} ms, plain {plain}, bound "
           f"{bound_ms:.4f} ms ({bound_by}){lib}, clocks {sm_clock()}")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1135,12 +1149,16 @@ def wrappers() -> dict:
     from nrc_hpm_tpu_torch.ops import pw_kernels as pk
     from nrc_hpm_tpu_torch.ops import table_gather as tg
 
+    from nrc_hpm_tpu_torch.ops import restir_reuse as rr
+
     return dict(pw_events=pk.pw_events, pw_profile=pk.pw_profile,
                 fused_encode_mlp=fem.fused_encode_mlp_infer,
                 hash_grid_train_fwd=hgt.hash_grid_train_fwd,
                 hash_grid_train_bwd=hgt.hash_grid_train_bwd,
                 fused_mlp=fm.fused_mlp_infer, table_gather=tg.table_gather,
-                small_table_lookup=mg.small_table_lookup)
+                small_table_lookup=mg.small_table_lookup,
+                temporal_reuse=rr.temporal_reuse,
+                spatial_reuse=rr.spatial_reuse)
 
 
 # The kernels each path must launch; every other kernel must not run there.
@@ -1155,6 +1173,10 @@ INFER_ROUTES = ((16, 6, 16, SPLIT_INFER), (32, 6, 16, SPLIT_INFER),
                 (256, 6, 16, SPLIT_INFER), (128, 8, 16, SPLIT_INFER),
                 (64, 6, 20, SPLIT_INFER), (64, 6, 16, ("fused_encode_mlp",)))
 TRAIN = ("hash_grid_train_fwd", "hash_grid_train_bwd")
+# The ReSTIR path: K1/K2 (the shadow ratio tracks of its shading pass),
+# the two reuse kernels and no other kernel
+REUSE = ("temporal_reuse", "spatial_reuse")
+RESTIR_KERNELS = TRACK + REUSE
 FROZEN_KERNELS = TRACK + ("fused_encode_mlp",)
 ONLINE_KERNELS = FROZEN_KERNELS + TRAIN
 # Frequency(12) + TriangleWave(4): split encode in torch, then K4
@@ -1941,7 +1963,7 @@ STUDY_MSE_RATIO = 0.85
 # the kernels each section of a study launches, and no other (a golden
 # the cache held launches nothing)
 STUDY_KERNELS = dict(golden=MC_KERNELS, truth=MC_KERNELS,
-                     restir=TRACK, restir_uniform=TRACK,
+                     restir=RESTIR_KERNELS, restir_uniform=RESTIR_KERNELS,
                      mc=MC_KERNELS)
 SUMMARY_KEYS = ("nrc_mse", "nrc_rel_bias", "nrc_cv", "mc_mse",
                 "mc_rel_bias", "mc_cv", "mse_ratio", "mean_frame_time_ms",
@@ -2318,9 +2340,14 @@ def app_phase(torch, gpu, extra=()) -> None:
           f"on {gpu}")
 
 
-# The ReSTIR path: K1/K2 (the shadow ratio tracks of its shading pass)
-# and no other kernel
-RESTIR_KERNELS = TRACK
+# the reuse phase: 1080p frames 0-3 at AppConfig()'s ReSTIR (valid_t off,
+# then on; the ring wraps), weighted and uniform; then small images, most
+# of whose pixels lie near a border, at (width, height, V, T, K)
+REUSE_FRAMES = 4
+REUSE_SMALL = ((37, 23, 2, 2, 3), (37, 23, 4, 2, 3), (37, 23, 1, 1, 3),
+               (37, 23, 8, 3, 5), (37, 23, 16, 2, 3))
+REUSE_RANDOM_FRAMES = (0, 1, 2, 5)
+REUSE_REPS = 20                # back-to-back calls a kernel time
 RESTIR_FRAMES = 4              # 1080p ReSTIR frames, frames 2-4 timed
 SMALL_RESTIR = (48, 27)        # the small ReSTIR frames, card against CPU
 SMALL_RESTIR_FRAMES = 4
@@ -2465,6 +2492,213 @@ def small_restir_check(torch, dev) -> None:
                                  f"frame disagrees with the CPU's")
     check_restir_image(torch, runs[0][-1].image, (h, w, 4), 0.1,
                        "small ReSTIR")
+
+
+def same_bits(torch, got, want) -> int:
+    """Elements of ``got`` whose float32 bits differ from ``want``'s (all
+    of them where the shapes differ)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return max(got.numel(), want.numel())
+    return int((got.contiguous().view(torch.int32)
+                != want.contiguous().view(torch.int32)).sum())
+
+
+def back_to_back_ms(torch, fn, reps: int = REUSE_REPS) -> float:
+    """Milliseconds a call of ``fn`` between two CUDA events around
+    ``reps`` back-to-back calls, after a warm-up: the device time of a
+    wrapper that launches one kernel and nothing else, since its host
+    time a call hides behind the kernel's.  (On the H100, torch.profiler
+    lost some or all of these kernels' events in the script's later
+    phases.)"""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def recorded_step(torch, step):
+    """Run ``step()`` with ``_temporal_reuse`` and ``_spatial_reuse`` of
+    models/restir.py wrapped; returns its result and each stage call's
+    (name, args, kwargs).  Every tensor argument must keep its bits
+    through the call (no stage writes its inputs)."""
+    from nrc_hpm_tpu_torch.models import restir
+
+    calls = []
+    stages = {n: getattr(restir, f"_{n}") for n in REUSE}
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            before = [a.clone() if torch.is_tensor(a) else None
+                      for a in args]
+            out = fn(*args, **kw)
+            for i, (a, b) in enumerate(zip(args, before)):
+                if b is not None and same_bits(torch, a, b):
+                    raise AssertionError(f"{name} wrote its argument {i}")
+            calls.append((name, args, kw))
+            return out
+        return call
+
+    for name, fn in stages.items():
+        setattr(restir, f"_{name}", recorder(name, fn))
+    try:
+        out = step()
+    finally:
+        for name, fn in stages.items():
+            setattr(restir, f"_{name}", fn)
+    return out, calls
+
+
+def reuse_check(torch, label: str, calls) -> int:
+    """Each recorded stage call through the kernel against the plain
+    version on the same card tensors: every output bit for bit."""
+    from nrc_hpm_tpu_torch.models import restir
+
+    for name, args, kw in calls:
+        got = getattr(restir, f"_{name}")(*args, **kw)
+        want = getattr(restir, f"_{name}_plain")(*args, **kw)
+        keys = (("reservoir", "ring", "stats", "mis", "rng")
+                if name == "temporal_reuse"
+                else ("reservoir", "stats", "mis", "rng"))
+        bad = {k: same_bits(torch, g, w) for k, g, w in zip(keys, got, want)}
+        if len(got) != len(want) or any(bad.values()):
+            where = ""
+            if bad.get("stats"):
+                px = (got[keys.index("stats")] != want[keys.index("stats")]
+                      ).any(-1).nonzero()[:4].tolist()
+                where = f"; first pixels with other stats {px}"
+            raise AssertionError(f"{label} {name}: not bitwise the plain "
+                                 f"version, differing elements {bad}{where}")
+    return len(calls)
+
+
+def random_state(torch, dev, gen, w: int, h: int, V: int, T: int):
+    """Stage inputs drawn at random (positions in [-1, 1), flags 0/1 with
+    a few other values, random bit patterns as seeds)."""
+    def rand(*shape):
+        return (2 * torch.rand(shape, generator=gen) - 1).to(dev)
+
+    flags = (torch.rand((h, w), generator=gen) < 0.7).float()
+    flags[0, : w // 3] = 0.5
+    pinfo = torch.cat([rand(h, w, 3).abs(), flags[..., None].to(dev)], -1)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (h, w), generator=gen,
+                          dtype=torch.int32).view(torch.float32)
+    seeds = torch.where(torch.isfinite(seeds), seeds, 0.5).to(dev)
+    stats = torch.stack([torch.randint(1, 9, (h, w), generator=gen).float(),
+                         torch.randint(0, V, (h, w), generator=gen).float()],
+                        -1).to(dev)
+    return (seeds, rand(h, w, V, 6), rand(T, h, w, V, 6), stats,
+            torch.rand((h, w, 2), generator=gen).to(dev), pinfo)
+
+
+def reuse_phase(torch, dev, vol, gpu) -> list:
+    """The reuse kernels (csrc/restir_reuse.cu) against their plain
+    versions bit for bit (every output's float32 bits) on the stage calls
+    of real frames: ``RestirRenderer(AppConfig())`` at 1080p, frames 0-3,
+    weighted and uniform; small border-heavy images at REUSE_SMALL's V, T
+    and K; random inputs.  No stage writes its inputs and no frame writes
+    the state it steps from; each kernel launches once a frame.  Then each
+    kernel's time at 1080p (``back_to_back_ms``) beside its bound (the
+    bytes of benchmark/rooflines/restir_reuse.py) and the plain version's
+    device time.  Returns a kernel row each."""
+    import numpy as np
+
+    # the least bytes of each stage, as the benchmark counts them
+    from benchmark.rooflines.restir_reuse import cost as reuse_cost
+    from nrc_hpm_tpu_torch.camera import Camera
+    from nrc_hpm_tpu_torch.config import AppConfig, RestirConfig
+    from nrc_hpm_tpu_torch.models import restir
+    from nrc_hpm_tpu_torch.volume import Volume
+
+    t0 = time.perf_counter()
+    base = AppConfig()
+    checked, last = 0, {}
+    runs = [(base.render_width, base.render_height, base.restir, vol,
+             REUSE_FRAMES)]
+    small = Volume.from_dense(
+        np.random.RandomState(42).rand(8, 8, 8).astype(np.float32), 0.6,
+        0.8, device=dev)
+    for w, h, v, t, k in REUSE_SMALL:
+        runs.append((w, h, RestirConfig(path_vertex_count=v,
+                                        temporal_kernel_size=t,
+                                        spatial_kernel_size=k), small,
+                     t + 2))
+    for w, h, rcfg, vol_, frames in runs:
+        for mis in (True, False):
+            cfg = dataclasses.replace(base, render_width=w, render_height=h,
+                                      restir=dataclasses.replace(
+                                          rcfg, mis_weights=mis))
+            r = restir.RestirRenderer(cfg, vol_)
+            cam = Camera.reference_camera(aspect=w / h, device=dev)
+            state = r.init_state(0)
+            label = (f"reuse {w}x{h} V={rcfg.path_vertex_count} "
+                     f"T={rcfg.temporal_kernel_size} "
+                     f"K={rcfg.spatial_kernel_size} mis={mis}")
+            for f in range(frames):
+                held = {k: t.clone() for k, t in vars(state).items()
+                        if torch.is_tensor(t)}
+                zero_launches()
+                new, calls = recorded_step(torch, lambda: r.step(state, cam))
+                torch.cuda.synchronize()
+                launches = read_launches()
+                if any(same_bits(torch, getattr(state, k), t)
+                       for k, t in held.items()):
+                    raise AssertionError(f"{label} frame {f}: the step "
+                                         f"wrote its input state")
+                if [launches[k] for k in REUSE] != [1, 1]:
+                    raise AssertionError(f"{label} frame {f}: reuse "
+                                         f"launches {launches}")
+                checked += reuse_check(torch, f"{label} frame {f}", calls)
+                if w == base.render_width and mis:
+                    last = dict(calls=calls, V=rcfg.path_vertex_count,
+                                T=rcfg.temporal_kernel_size)
+                state = new
+            print(f"{label}: {frames} frames, every stage call bitwise the "
+                  f"plain version, one launch of each kernel a frame, no "
+                  f"input written")
+            del r, state, new
+    gen = torch.Generator().manual_seed(21)
+    for mis in (True, False):
+        for v, t in ((4, 2), (8, 3)):
+            seeds, res, ring, stats, m, pinfo = random_state(
+                torch, dev, gen, 37, 23, v, t)
+            calls = [("temporal_reuse", (seeds, res, ring, stats, m, pinfo,
+                                         f, v, t), dict(g=0.8, weighted=mis))
+                     for f in REUSE_RANDOM_FRAMES]
+            calls.append(("spatial_reuse", (seeds, res, stats, m, pinfo, v,
+                                            3, 23, 37),
+                          dict(g=-0.3, weighted=mis)))
+            checked += reuse_check(torch, f"reuse random V={v} T={t} "
+                                   f"mis={mis}", calls)
+    print(f"reuse: {checked} stage calls bitwise equal to the plain "
+          f"versions, {time.perf_counter() - t0:.1f} s")
+
+    rows = []
+    lanes = base.render_width * base.render_height
+    for name, args, kw in last["calls"]:
+        stage = name.split("_")[0]
+        fn = getattr(restir, f"_{name}")
+        plain = getattr(restir, f"_{name}_plain")
+        ms = back_to_back_ms(torch, lambda: fn(*args, **kw))
+        plain_ms = device_ms(torch, lambda: plain(*args, **kw), name,
+                             kernel="", optional=True)
+        n_bytes = reuse_cost(f"restir.{stage}", lanes=lanes, V=last["V"],
+                             T=last["T"])["n_bytes"]
+        row = kernel_row(f"restir.{name}", "nrc_hpm_tpu_torch/csrc/"
+                         "restir_reuse.cu", "none (XLA fuses the reuse)",
+                         0.0, ms, plain_ms, bound(n_bytes))
+        row.update(launches=1, lanes=lanes)
+        print(f"restir.{name} {lanes} lanes: {n_bytes / 1e9:.3f} GB least "
+              f"bytes, {n_bytes / (ms / 1e3) / 1e12:.3f} TB/s of them, on "
+              f"{gpu}")
+        rows.append(row)
+    print(f"reuse phase: {time.perf_counter() - t0:.1f} s, on {gpu}")
+    return rows
 
 
 def app_restir_phase(torch, gpu, extra=()) -> None:
@@ -3067,6 +3301,7 @@ def main() -> int:
     small_mc_check(torch, dev)
     restir_phase(torch, dev, vol, gpu)
     small_restir_check(torch, dev)
+    draw_rows += reuse_phase(torch, dev, vol, gpu)
     model_phase(torch, dev, gpu)
     quality_phase(torch, dev, vol, gpu, r, state)
     del r, state

@@ -31,37 +31,23 @@
 // Bitwise the plain versions: the state's bits are read by reinterpreting
 // the float, the hash wraps in uint32 where the plain version masks to 32
 // bits, the float is (m & 0x7FFFFF) | 0x3F800000 minus 1.0f, a sample is
-// one multiply by maxval, and the file is compiled with -fmad=false.
+// one multiply by maxval, and the file is compiled with -fmad=false.  The
+// hash and the float live in rng.cuh, which the ReSTIR reuse kernels share.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rng.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int BLOCKS_PER_SM = 16;
 
-__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
-  x = x + (x << 10);
-  x = x ^ (x >> 6);
-  x = x + (x << 3);
-  x = x ^ (x >> 11);
-  x = x + (x << 15);
-  return x;
-}
-
-__device__ __forceinline__ float float_construct(uint32_t m) {
-  return __uint_as_float((m & 0x007FFFFFu) | 0x3F800000u) - 1.0f;
-}
-
-__device__ __forceinline__ float random1(float x) {
-  return float_construct(hash_u32(__float_as_uint(x)));
-}
-
-__device__ __forceinline__ float random2(float x, float y) {
-  return float_construct(hash_u32(__float_as_uint(x) ^
-                                  hash_u32(__float_as_uint(y))));
-}
+using rng::float_construct;
+using rng::hash_u32;
+using rng::random1;
+using rng::random2;
 
 __global__ void __launch_bounds__(THREADS)
 uniform_kernel(const float* __restrict__ state, float maxval, long long n,

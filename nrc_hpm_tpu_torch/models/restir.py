@@ -38,9 +38,14 @@ biases ``mis_weights=True``; and ``_shade`` does not clamp W.
 Every stage reseeds from the same per-frame uniform, and only the lanes
 a stage masks in draw.  ``frame`` is a host integer, so the ring is
 indexed without reading the card back; the frame's host syncs (the
-copies to the card of the seed, the probe directions' fallback axis and
-the ring slot's index, and the shadow trackers' compaction) each sit in a
-``profiler.sync``.
+copies to the card of the seed and the probe directions' fallback axis,
+and the shadow trackers' compaction) each sit in a ``profiler.sync``.
+
+On the card the two reuse stages are one kernel launch each
+(``ops/restir_reuse.py``, ``csrc/restir_reuse.cu``: one thread a pixel
+walks its candidates in registers), bit for bit their plain versions
+``_temporal_reuse_plain`` and ``_spatial_reuse_plain``, which CPU tensors
+take.  No stage writes into its inputs.
 
 As ``McRenderer`` and ``NrcRenderer`` do, ``step`` blends each frame into
 a running mean with weight 1 / ``blend_index`` (``blend=False`` keeps only
@@ -64,6 +69,7 @@ from ..camera import Camera, pixel_rays
 from ..config import AppConfig
 from ..integrator import TraceParams, trace_scene
 from ..lights import LightFlags, Lights, lights_from_scene, sample_env_map
+from ..ops import _build, restir_reuse
 from ..renderer import _blend, _volume_from_config
 from ..sampling import hg_phase, new_ray_dir
 from ..transmittance import fixed_step_transmittance
@@ -224,7 +230,27 @@ def _temporal_reuse(rng_state, reservoir, old_reservoirs, stats, mis,
     scattered pixels, then the chosen old suffix spliced in (a no-op on
     frame 0).  Returns (reservoir, old_reservoirs, stats, mis,
     rng_state); ``old_reservoirs`` is a new ring with the current
-    reservoir written into slot frame % T where a pixel resampled."""
+    reservoir written into slot frame % T where a pixel resampled.  No
+    input is written.  CPU tensors take ``_temporal_reuse_plain``, CUDA
+    tensors one launch of ``ops.restir_reuse.temporal_reuse``."""
+    if not _build.on_card("temporal_reuse", reservoir.device):
+        return _temporal_reuse_plain(
+            rng_state, reservoir, old_reservoirs, stats, mis, pixel_info,
+            frame, n_vertices, temporal_kernel, g=g, weighted=weighted)
+    _build.require("temporal_reuse", reservoir.shape[2] == n_vertices,
+                   f"the reservoir holds {reservoir.shape[2]} vertices, not "
+                   f"{n_vertices}")
+    return restir_reuse.temporal_reuse(
+        rng_state, reservoir, old_reservoirs, stats, mis, pixel_info, frame,
+        temporal_kernel, g, weighted)
+
+
+def _temporal_reuse_plain(rng_state, reservoir, old_reservoirs, stats, mis,
+                          pixel_info, frame: int, n_vertices: int,
+                          temporal_kernel: int, g: float = 0.0,
+                          weighted: bool = False):
+    """``_temporal_reuse`` in PyTorch operations, candidate by candidate
+    over the whole image."""
     T = temporal_kernel
     scat = pixel_info[..., 3] == 1.0
     stream = stats[..., 0]
@@ -262,9 +288,8 @@ def _temporal_reuse(rng_state, reservoir, old_reservoirs, stats, mis,
     # BEFORE the splice gathers from it
     cur_bank = torch.where(do[..., None, None], reservoir,
                            old_reservoirs[cur_slot])
-    with profiler.sync("restir.ring_slot"):   # a copy from host memory
-        slot = torch.tensor([cur_slot], device=reservoir.device)
-    old_reservoirs = old_reservoirs.index_copy(0, slot, cur_bank[None])
+    old_reservoirs = old_reservoirs.clone()
+    old_reservoirs[cur_slot] = cur_bank
     # the suffix [v_idx:] from each pixel's selected slot
     index = last_slot.to(torch.int64)[None, ..., None, None].expand(
         (1,) + reservoir.shape)
@@ -283,7 +308,27 @@ def _spatial_reuse(rng_state, reservoir, stats, mis, pixel_info,
     """The same stream over the in-bounds scattered neighbours' suffixes
     (neighbour-major: dx, then dy, then the vertex), then the selected
     neighbour's suffix spliced in from the reservoir as it entered the
-    stage.  Returns (reservoir, stats, mis, rng_state)."""
+    stage.  Returns (reservoir, stats, mis, rng_state); no input is
+    written.  CPU tensors take ``_spatial_reuse_plain``, CUDA tensors one
+    launch of ``ops.restir_reuse.spatial_reuse``."""
+    if not _build.on_card("spatial_reuse", reservoir.device):
+        return _spatial_reuse_plain(
+            rng_state, reservoir, stats, mis, pixel_info, n_vertices,
+            spatial_kernel, height, width, g=g, weighted=weighted)
+    _build.require("spatial_reuse", tuple(reservoir.shape[:3])
+                   == (height, width, n_vertices),
+                   f"the reservoir is {tuple(reservoir.shape)}, not "
+                   f"({height}, {width}, {n_vertices}, 6)")
+    return restir_reuse.spatial_reuse(rng_state, reservoir, stats, mis,
+                                      pixel_info, spatial_kernel, g,
+                                      weighted)
+
+
+def _spatial_reuse_plain(rng_state, reservoir, stats, mis, pixel_info,
+                         n_vertices: int, spatial_kernel: int, height: int,
+                         width: int, g: float = 0.0, weighted: bool = False):
+    """``_spatial_reuse`` in PyTorch operations, candidate by candidate
+    over the whole image."""
     scat = pixel_info[..., 3] == 1.0
     stream = stats[..., 0]
     wsum, w_sel = mis[..., 0], mis[..., 1]

@@ -17,14 +17,20 @@ from .utils import rng
 PI = 3.14159265358979323846
 
 
-def hg_phase(cos_theta: torch.Tensor, g: float) -> torch.Tensor:
-    """hg_phase_func; the 0.5 factor bakes in the azimuthal 1/(2 pi).
-    Scalar terms are float32, as in the JAX package."""
+def hg_constants(g: float) -> tuple:
+    """hg_phase's scalar terms (1 + g^2, 2 g, 0.5 (1 - g^2)), computed from
+    float32 g as in the JAX package (the ReSTIR reuse kernels take the
+    same)."""
     g = np.float32(g)
     g2 = g * g
-    denom = float(1.0 + g2) - float(2.0 * g) * cos_theta
-    return float(0.5 * (1.0 - g2)) / torch.pow(
-        torch.clamp(denom, min=1e-12), 1.5)
+    return float(1.0 + g2), float(2.0 * g), float(0.5 * (1.0 - g2))
+
+
+def hg_phase(cos_theta: torch.Tensor, g: float) -> torch.Tensor:
+    """hg_phase_func; the 0.5 factor bakes in the azimuthal 1/(2 pi)."""
+    one_g2, two_g, half_1mg2 = hg_constants(g)
+    denom = one_g2 - two_g * cos_theta
+    return half_1mg2 / torch.pow(torch.clamp(denom, min=1e-12), 1.5)
 
 
 def _rotation_apply(axis, angle, v):

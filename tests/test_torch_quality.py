@@ -511,7 +511,8 @@ def test_studies_phase_on_the_cpu(cache, monkeypatch, capsys):
         f"interactive {SMALL_POINTS[0][0]}": online,
         f"interactive {SMALL_POINTS[1][0]}": online,
         "interactive golden": (), "interactive trace": online,
-        "restir restir": track, "restir restir_uniform": track,
+        "restir restir": chip_smoke.RESTIR_KERNELS,
+        "restir restir_uniform": chip_smoke.RESTIR_KERNELS,
         "restir mc": track, "restir truth": ()}
 
 
