@@ -95,12 +95,10 @@ frames, timed, and one under torch.profiler (the kernels and the NCCL
 operations); then two gloo ranks, processes spawned on the one card
 (NCCL takes one rank per card), two online frames each: the first
 gathered frame held to the single-device frozen frame, the replicas
-bitwise equal.  Last, the benchmark: ``bench_torch.run`` at 1080p with
-every section and the stage profile, two timed online frames (every
-measurement finite and positive, the record naming this card, each
-section's kernels launched and no other).  It prints the card's name and
-power limit, one line per kernel, the frame and path times, a JSON
-kernel summary, and as its last line
+bitwise equal.  It prints the card's name and power limit, one line
+per kernel (K1's and K3's bounds from ``benchmark/rooflines``, every
+bound on ``benchmark/harness/peaks.py``'s peaks), the frame and path
+times, a JSON kernel summary, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises.  Without a CUDA device it exits with code 1.
 """
@@ -117,6 +115,13 @@ import statistics
 import subprocess
 import sys
 import time
+
+from benchmark.harness.peaks import HBM_BYTES_S, bound_s, mlp_ops
+from benchmark.harness.trace import trace_events, union_ns
+from benchmark.rooflines import k1, k3, restir_reuse
+from nrc_hpm_tpu_torch.ops import (kernel_table, read_launches,
+                                   zero_launches)
+from quality_torch import gpu_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_LANES = 1 << 20            # K1/K2 lanes: camera rays through the cloud
@@ -208,33 +213,11 @@ SAME_INPUT_TOL = dict(rtol=1e-3, atol=1e-4, share=0.99)
 # terminal point within 1e-3) agree on >= 99%: an event depth an ulp apart
 # may pick another fine cell, as the CPU tests against JAX allow.
 COARSE_LANE_SHARE = 0.99
-# NVIDIA H100 SXM peaks (data sheet, dense): device memory bytes/s, bf16
-# tensor-core and float32 (outside the tensor cores) operations/s
-HBM_BYTES_S = 3.35e12
-BF16_OPS_S = 989e12
-F32_OPS_S = 67e12
-# float32 operations per lane counted from csrc/pw_kernels.cu: one macro
-# lookup (box coordinates, bounds tests, clamp, index, decode), one
-# profile interval (point, max/min, two running sums), one event (hash,
-# log1p, walk steps, inversion, fine cell); and per (sample, level) of the
-# hash-grid encode (cell, 8 corner weights and indices, 16 products/sums)
-LOOKUP_OPS, INTERVAL_OPS, EVENT_OPS, LEVEL_OPS = 30, 14, 60, 150
 # kernels whose every instance must not spill registers
 NO_SPILL = ("pw_events_kernel", "pw_profile_kernel", "fused_mlp_resident",
             "fused_mlp_stream", "hash_grid_train_fwd_kernel",
             "hash_grid_train_bwd_kernel", "temporal_reuse_kernel",
             "spatial_reuse_kernel")
-# the kernel of each wrapper, by the name the profiler shows
-KERNEL_NAMES = dict(pw_events="pw_events_kernel",
-                    pw_profile="pw_profile_kernel",
-                    fused_encode_mlp="fused_encode_mlp_kernel",
-                    hash_grid_train_fwd="hash_grid_train_fwd_kernel",
-                    hash_grid_train_bwd="hash_grid_train_bwd_kernel",
-                    fused_mlp="fused_mlp_",
-                    table_gather="table_gather_kernel",
-                    small_table_lookup="small_table_lookup_kernel",
-                    temporal_reuse="temporal_reuse_kernel",
-                    spatial_reuse="spatial_reuse_kernel")
 # The draw kernels (csrc/rng_kernels.cu), each against its plain version
 # bit for bit on: a lone lane, a late train bounce (172 live lanes), the
 # 65,536 train rays and the 2,073,600 primary lanes of a 1080p frame;
@@ -252,13 +235,6 @@ DRAW_KERNELS = dict(init_state="init_state_kernel",
                     masked_uniform="masked_uniform_kernel",
                     advance_dead="advance_dead_kernel",
                     indexed_draws="indexed_draws_kernel")
-
-
-def gpu_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def time_ms(torch, fn) -> float:
@@ -288,31 +264,21 @@ def sm_clock() -> str:
 def device_rows(torch, prof) -> list:
     """(name, self device ms, count) of the kernels and copies a profile
     saw on the card (CPU operator rows, which carry their kernels' time
-    too, left out)."""
+    too, left out, and the program's spans, which the profiler also lays
+    on the device's timeline: ``harness/trace.trace_events`` reads the
+    same operations)."""
     cuda = torch.autograd.DeviceType.CUDA
     return [(r.key, r.self_device_time_total / 1e3, r.count)
             for r in prof.key_averages()
-            if r.device_type == cuda and r.self_device_time_total > 0]
-
-
-def busy_ms(torch, prof) -> float:
-    """Milliseconds in which at least one device operation ran: the union
-    of their intervals."""
-    cuda = torch.autograd.DeviceType.CUDA
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == cuda)
-    total, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total / 1e3
+            if r.device_type == cuda and r.self_device_time_total > 0
+            and not r.is_user_annotation]
 
 
 def device_ms(torch, fn, name: str, reps: int = REPS, kernel=None,
               optional: bool = False):
     """Milliseconds of device time per call of ``fn`` spent in the kernel
-    ``KERNEL_NAMES[name]`` (or in those whose name holds ``kernel``), from
+    ``name`` (its symbol in ``kernel_table()``, or the kernels whose name
+    holds ``kernel``), from
     torch.profiler over ``reps`` calls after a warm-up (the kernel alone:
     no launch gaps, no set-up kernels of the wrapper).  A trace that lost
     the kernel's events is taken again, up to three times in all; then it
@@ -327,7 +293,7 @@ def device_ms(torch, fn, name: str, reps: int = REPS, kernel=None,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        want = KERNEL_NAMES[name] if kernel is None else kernel
+        want = kernel_table()[name][1] if kernel is None else kernel
         rows = device_rows(torch, prof)
         ms = sum(t for key, t, _ in rows if want in key)
         if ms > 0:
@@ -341,29 +307,22 @@ def device_ms(torch, fn, name: str, reps: int = REPS, kernel=None,
 
 
 def bound(n_bytes: float, bf16_ops: float = 0.0, f32_ops: float = 0.0):
-    """(bound_ms, bound_by): the least time the card could take, the
-    larger of the bytes over device memory's rate and the operations over
-    their type's peak rate."""
-    t_bytes = 1e3 * n_bytes / HBM_BYTES_S
-    t_ops = 1e3 * max(bf16_ops / BF16_OPS_S, f32_ops / F32_OPS_S)
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by): ``bound_s`` in milliseconds, and whether the
+    bytes or the operations set it."""
+    t = bound_s(n_bytes, bf16_ops, f32_ops)
+    return 1e3 * t, "bytes" if t == n_bytes / HBM_BYTES_S else "operations"
 
 
 def pw_bound(n: int, n_macro: int, S: int = 0, draw: bool = True):
-    """K1 (S events) or K2 (S = 0: the control draw, none without
-    ``draw``) on n lanes: per lane the 32 bytes of start/direction/tmax/
-    seed read, K1's e_last read and 16 bytes per event plus e_new/rtot/ctot
-    written, K2's rtot/ctot/t_ctrl written; the macro table read once."""
-    per_lane = 32 + (4 + 16 * S + 12 if S else 12)
-    ops = (33 * LOOKUP_OPS + 32 * INTERVAL_OPS
-           + (S or int(draw)) * EVENT_OPS)
-    return bound(n * per_lane + 4 * n_macro, f32_ops=n * ops)
-
-
-def mlp_ops(layers) -> int:
-    """Operations per sample of a bias-free MLP (a multiply and an add per
-    weight)."""
-    return sum(2 * w.shape[0] * w.shape[1] for w in layers)
+    """K1 on n lanes (S events: ``rooflines/k1.cost``) or K2 (S = 0: K1's
+    lookups and intervals and the control draw's one event, none without
+    ``draw``; per lane the 32 bytes of start/direction/tmax/seed read and
+    rtot/ctot/t_ctrl written, the macro table read once)."""
+    if S:
+        return bound(**k1.cost(n, S, n_macro))
+    ops = (33 * k1.LOOKUP_OPS + 32 * k1.INTERVAL_OPS
+           + int(draw) * k1.EVENT_OPS)
+    return bound(n * (32 + 12) + 4 * n_macro, f32_ops=n * ops)
 
 
 def gpu_sass_count(so, opcode: str) -> int:
@@ -611,7 +570,7 @@ def kernel_phase(torch, dev, vol, cfg) -> list:
         pw_bound(N_LANES, n_macro, 16))
 
     fargs = k3_inputs(torch, dev, cfg, gen)
-    packed, layers, x5, spec = fargs
+    packed, _, x5, spec = fargs
     err = compare(torch, "fused_encode_mlp",
                   dict(out=fem.fused_encode_mlp_infer(*fargs)),
                   dict(out=fem.fused_encode_mlp_plain(*fargs)), **K3_TOL)
@@ -619,7 +578,7 @@ def kernel_phase(torch, dev, vol, cfg) -> list:
         "nrc_hpm_tpu/ops/fused_encode_mlp.py:66", err,
         k3_ms(torch, fem, fargs),
         time_ms(torch, lambda: fem.fused_encode_mlp_plain(*fargs)),
-        k3_bound(N_X5, spec, layers))
+        k3_bound(fargs))
     # the same work on the tpu_tuned 2^12 table (256 KB, L2-resident): what
     # the 2^19 table's size costs the gathers
     k3_ms(torch, fem, k3_inputs(torch, dev, AppConfig.tpu_tuned(),
@@ -881,15 +840,10 @@ def draws_phase(torch, dev, gpu) -> list:
     return rows
 
 
-def k3_bound(n: int, spec, layers):
-    """K3 on n samples: x5 read and the outputs written, the packed table
-    and the weights read once; the MLP's bf16 products and the encode's
-    float32 work."""
-    out_dim = layers[-1].shape[1]
-    n_bytes = (n * (20 + 4 * out_dim) + 4 * spec.total_params
-               + 2 * sum(w.numel() for w in layers))
-    return bound(n_bytes, bf16_ops=n * mlp_ops(layers),
-                 f32_ops=n * spec.n_levels * LEVEL_OPS)
+def k3_bound(fargs):
+    """K3 on ``fused_encode_mlp_infer``'s arguments: the bytes and
+    operations of ``rooflines/k3``."""
+    return bound(**k3.cost(**k3.sizes(*fargs)))
 
 
 def k3_ms(torch, fem, fargs, label: str = "") -> float:
@@ -897,7 +851,7 @@ def k3_ms(torch, fem, fargs, label: str = "") -> float:
     call, which also lays out the weights, and its bound)."""
     ms = device_ms(torch, lambda: fem.fused_encode_mlp_infer(*fargs),
                    "fused_encode_mlp")
-    bnd = k3_bound(fargs[2].shape[0], fargs[3], fargs[1])
+    bnd = k3_bound(fargs)
     wrapper = time_ms(torch, lambda: fem.fused_encode_mlp_infer(*fargs))
     print(f"fused_encode_mlp {fargs[2].shape[0]} samples{label}: kernel "
           f"{ms:.4f} ms (device), wrapper call {wrapper:.4f} ms, bound "
@@ -999,7 +953,7 @@ def k4_bound(feats, layers):
     n = feats.shape[0]
     return bound(feats.numel() * 4 + n * 4 * layers[-1].shape[1]
                  + 2 * sum(w.numel() for w in layers),
-                 bf16_ops=n * mlp_ops(layers))
+                 bf16_ops=n * mlp_ops(w.shape for w in layers))
 
 
 def repeating_positions(torch, n: int, gen):
@@ -1092,7 +1046,7 @@ def train_encode_phase(torch, dev, cfg, gen) -> list:
                 fwd = name.endswith("fwd")
                 bnd = bound(12 * n + 8 * n * spec.n_levels
                             + (4 if fwd and packed else 8) * touched,
-                            f32_ops=n * spec.n_levels * LEVEL_OPS)
+                            f32_ops=n * spec.n_levels * k3.LEVEL_OPS)
                 took = ("not measured" if zeros_dev is None
                         else f"{zeros_dev:.4f} ms (device)")
                 zeros = "" if fwd else (
@@ -1140,27 +1094,6 @@ def train_encode_phase(torch, dev, cfg, gen) -> list:
     return rows
 
 
-def wrappers() -> dict:
-    """Every kernel wrapper, by kernel name; each counts its launches."""
-    from nrc_hpm_tpu_torch.ops import fused_encode_mlp as fem
-    from nrc_hpm_tpu_torch.ops import fused_mlp as fm
-    from nrc_hpm_tpu_torch.ops import hash_grid_train as hgt
-    from nrc_hpm_tpu_torch.ops import macro_gather as mg
-    from nrc_hpm_tpu_torch.ops import pw_kernels as pk
-    from nrc_hpm_tpu_torch.ops import table_gather as tg
-
-    from nrc_hpm_tpu_torch.ops import restir_reuse as rr
-
-    return dict(pw_events=pk.pw_events, pw_profile=pk.pw_profile,
-                fused_encode_mlp=fem.fused_encode_mlp_infer,
-                hash_grid_train_fwd=hgt.hash_grid_train_fwd,
-                hash_grid_train_bwd=hgt.hash_grid_train_bwd,
-                fused_mlp=fm.fused_mlp_infer, table_gather=tg.table_gather,
-                small_table_lookup=mg.small_table_lookup,
-                temporal_reuse=rr.temporal_reuse,
-                spatial_reuse=rr.spatial_reuse)
-
-
 # The kernels each path must launch; every other kernel must not run there.
 TRACK = ("pw_events", "pw_profile")
 # cache.infer at the shapes K3 does not take: K7's packed forward, then K4
@@ -1183,15 +1116,6 @@ ONLINE_KERNELS = FROZEN_KERNELS + TRAIN
 FREQ_TRI_FROZEN = TRACK + ("fused_mlp",)
 # hash grid + Identity: K7's packed forward, then K4; trained through K7
 HASH_ID_FROZEN = TRACK + ("hash_grid_train_fwd", "fused_mlp")
-
-
-def zero_launches() -> None:
-    for w in wrappers().values():
-        w.launches = 0
-
-
-def read_launches() -> dict:
-    return {k: w.launches for k, w in wrappers().items()}
 
 
 def run_frames(torch, r, state, cam, frames: int, train: bool):
@@ -1342,14 +1266,14 @@ def profile_step(torch, label: str, step, frame_ms: float, gpu):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     launches = read_launches()
     ops = device_rows(torch, prof)
-    busy = busy_ms(torch, prof)
+    busy = union_ns(trace_events(prof)[0]) / 1e6
     print(f"profiled {label}: {wall_ms:.1f} ms under the profiler, "
           f"{sum(c for _, _, c in ops)} device operations, "
           f"{sum(t for _, t, _ in ops):.3f} ms of device time, busy "
           f"{busy:.3f} ms: {busy / wall_ms:.4f} of the profiled frame, "
           f"{busy / frame_ms:.4f} of an unprofiled one ({frame_ms:.1f} ms), "
           f"on {gpu}")
-    for name, kernel in KERNEL_NAMES.items():
+    for name, (_, kernel) in kernel_table().items():
         ms = sum(t for key, t, _ in ops if kernel in key)
         calls = sum(c for key, _, c in ops if kernel in key)
         print(f"profiled {label} {name}: {launches[name]} launches "
@@ -1992,8 +1916,8 @@ def check_study_launches(rec: dict, label: str) -> None:
         kernels = STUDY_KERNELS.get(section, ONLINE_KERNELS)
         if section in ("golden", "truth") and rec[section]["cached"]:
             kernels = ()
-        check_launches({k: launches.get(k, 0) for k in wrappers()}, kernels,
-                       f"{label} {section}")
+        check_launches({k: launches.get(k, 0) for k in kernel_table()},
+                       kernels, f"{label} {section}")
 
 
 def studies_phase(torch, gpu, sizes=None, device="cuda", **kw) -> None:
@@ -2109,7 +2033,7 @@ def gates_check(torch, gpu, sizes=None, device="cuda", **kw) -> None:
         sid, part = section.split()
         cached = part == "golden" and \
             rec["presets"][sid]["golden"]["cached"]
-        check_launches({k: launches.get(k, 0) for k in wrappers()},
+        check_launches({k: launches.get(k, 0) for k in kernel_table()},
                        () if cached else MC_KERNELS, f"gates {section}")
     if sorted(rec["presets"]) != [str(s) for s in qt.PRESETS]:
         raise AssertionError(f"gates: presets {sorted(rec['presets'])}")
@@ -2608,8 +2532,6 @@ def reuse_phase(torch, dev, vol, gpu) -> list:
     device time.  Returns a kernel row each."""
     import numpy as np
 
-    # the least bytes of each stage, as the benchmark counts them
-    from benchmark.rooflines.restir_reuse import cost as reuse_cost
     from nrc_hpm_tpu_torch.camera import Camera
     from nrc_hpm_tpu_torch.config import AppConfig, RestirConfig
     from nrc_hpm_tpu_torch.models import restir
@@ -2687,8 +2609,8 @@ def reuse_phase(torch, dev, vol, gpu) -> list:
         ms = back_to_back_ms(torch, lambda: fn(*args, **kw))
         plain_ms = device_ms(torch, lambda: plain(*args, **kw), name,
                              kernel="", optional=True)
-        n_bytes = reuse_cost(f"restir.{stage}", lanes=lanes, V=last["V"],
-                             T=last["T"])["n_bytes"]
+        n_bytes = restir_reuse.cost(f"restir.{stage}", lanes=lanes,
+                                    V=last["V"], T=last["T"])["n_bytes"]
         row = kernel_row(f"restir.{name}", "nrc_hpm_tpu_torch/csrc/"
                          "restir_reuse.cu", "none (XLA fuses the reuse)",
                          0.0, ms, plain_ms, bound(n_bytes))
@@ -3195,56 +3117,6 @@ def options_phase(torch, dev, vol, gpu) -> None:
                           f"{kind} {size} {opts}")
 
 
-BENCH_FRAMES = 2               # bench_torch.run's timed online frames
-# the kernels each section of bench_torch.run must launch, and no other
-BENCH_SECTIONS = dict(online=ONLINE_KERNELS, frozen=FROZEN_KERNELS,
-                      inference=("fused_encode_mlp",), mc32=MC_KERNELS,
-                      nrc_online_2e12=ONLINE_KERNELS, stages=ONLINE_KERNELS)
-# the record's measurements, each finite and positive
-BENCH_KEYS = (
-    "compile_plus_first_frame_s", "nrc_online_ms_per_frame",
-    "nrc_online_rays_per_s", "nrc_loss", "nrc_online_2e19_ms_per_frame",
-    "nrc_online_2e19_rays_per_s", "nrc_frozen_ms_per_frame",
-    "nrc_frozen_rays_per_s", "nrc_infer_ms", "nrc_infer_samples_per_s",
-    "nrc_infer_fullbatch_ms", "nrc_infer_fullbatch_samples_per_s",
-    "mc32_ms_per_frame", "mc32_rays_per_s", "nrc_online_2e12_ms_per_frame",
-    "nrc_online_2e12_rays_per_s", "compile_cache_entries_before",
-    "device_count", "host_cores", "run_s", "process_cpu_s")
-
-
-def bench_phase(torch, gpu) -> None:
-    """``bench_torch.run`` at 1920x1080 with every section and the stage
-    profile, BENCH_FRAMES timed online frames: every measurement and stage
-    present, finite and positive, the record naming this card, the build
-    cache warm (``build`` made every library), each section's kernels
-    launched and no other."""
-    import bench_torch
-
-    t0 = time.perf_counter()
-    rec = bench_torch.run(frames=BENCH_FRAMES, profile=True)
-    print(f"bench record ({time.perf_counter() - t0:.1f} s, on {gpu}): "
-          f"{json.dumps(rec)}")
-    values = {k: rec.get(k) for k in BENCH_KEYS}
-    values.update({f"stages_ms.{k}": rec["stages_ms"].get(k)
-                   for k in STAGE_KEYS})
-    for key, v in values.items():
-        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
-            raise AssertionError(f"bench: {key} is {v}")
-    if (rec["device"], rec["gpu"]) != (torch.cuda.get_device_name(0), gpu):
-        raise AssertionError(f"bench: the record names {rec['device']} / "
-                             f"{rec['gpu']}")
-    if rec["compile_cache_status"] != "warm":
-        raise AssertionError(f"bench: build cache "
-                             f"{rec['compile_cache_status']}")
-    if set(rec["kernels_launched"]) != set(BENCH_SECTIONS):
-        raise AssertionError(f"bench: sections "
-                             f"{sorted(rec['kernels_launched'])}")
-    for section, kernels in BENCH_SECTIONS.items():
-        got = rec["kernels_launched"][section]
-        check_launches({k: got.get(k, 0) for k in wrappers()}, kernels,
-                       f"bench {section}")
-
-
 def main() -> int:
     import torch
 
@@ -3311,7 +3183,6 @@ def main() -> int:
     app_restir_phase(torch, gpu)
     app_mesh_phase(torch, gpu)
     sharding_phase(torch, dev, vol, cfg, gpu)
-    bench_phase(torch, gpu)
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows + draw_rows}))

@@ -264,27 +264,6 @@ def profile_trace(log_dir: str = os.path.join("output_torch", "trace")):
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def stage_ms(fn, device: torch.device, reps: int) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` calls after one
-    warm-up: CUDA events on the card, the host clock on the CPU."""
-    fn()
-    times = []
-    for _ in range(reps):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 # the stages that are a span of NrcRenderer.step, by the JAX package's key
 STAGE_SPANS = {"clear": "nrc.clear", "gen_rays": "nrc.primary",
                "prep_infer": "nrc.pack", "nn_infer": "nrc.infer",

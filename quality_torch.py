@@ -73,16 +73,17 @@ import hashlib
 import json
 import os
 import shutil
+import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from bench_torch import built_libraries, device_record, launched, log, sync
 from nrc_hpm_tpu_torch.camera import Camera
 from nrc_hpm_tpu_torch.config import AppConfig, RestirConfig, SceneConfig
 from nrc_hpm_tpu_torch.models.restir import RestirRenderer
+from nrc_hpm_tpu_torch.ops import _build, read_launches, zero_launches
 from nrc_hpm_tpu_torch.reference import (GoldenReference, _downsample,
                                          generate_golden)
 from nrc_hpm_tpu_torch.renderer import McRenderer, NrcRenderer
@@ -153,6 +154,48 @@ POINTS = (
     ("480x270 train 2x2^11 tables 2^19", 480, 270, 2, 11, 1, 19),
 )
 ADOPTED = POINTS[0]           # the point the quality trace runs
+
+
+# ---- the record: logs, the card and the kernels launched --------------------
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def built_libraries() -> int:
+    """Libraries in the build cache (``nrc_hpm_tpu_torch/_build/``)."""
+    return len(list(_build.BUILD_DIR.glob("lib*.so")))
+
+
+@contextlib.contextmanager
+def launched(record: dict, section: str):
+    """Record the port kernels launched in the block, with their counts,
+    under ``record["kernels_launched"][section]``."""
+    zero_launches()
+    yield
+    record["kernels_launched"][section] = {
+        k: n for k, n in read_launches().items() if n}
+
+
+def gpu_line() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def device_record(device: torch.device) -> dict:
+    if device.type != "cuda":
+        return {"device": "cpu"}
+    return {"device": torch.cuda.get_device_name(0),
+            "device_count": torch.cuda.device_count(), "gpu": gpu_line(),
+            "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
 # ---- the golden cache -------------------------------------------------------

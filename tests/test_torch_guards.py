@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
             "nrc_hpm_tpu_torch.utils.texture, "
             "nrc_hpm_tpu_torch.parallel.sharding, "
             "nrc_hpm_tpu_torch.parallel.multihost, "
-            "nrc_hpm_tpu_torch.utils.native, bench_torch\n"
+            "nrc_hpm_tpu_torch.utils.native\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'nrc_hpm_tpu')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -61,9 +61,9 @@ def test_port_imports_no_jax():
 
 
 def test_quality_torch_imports_no_jax():
-    """quality_torch.py, as bench_torch.py: no JAX, nothing of the JAX
-    package and nothing of experiments/ (it keeps its own copy of what it
-    needs from summarize_run.py)."""
+    """quality_torch.py: no JAX, nothing of the JAX package and nothing of
+    experiments/ (it keeps its own copy of what it needs from
+    summarize_run.py)."""
     code = ("import sys, quality_torch\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'nrc_hpm_tpu', 'experiments', "

@@ -99,7 +99,7 @@ def test_sharding_phase_on_the_cpu(monkeypatch, capsys):
     run has neither), its rehearsal recorded, not run."""
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "profile_step", lambda *a: (
-        {k: 0 for k in chip_smoke.wrappers()},
+        {k: 0 for k in chip_smoke.kernel_table()},
         [("ncclDevKernel_AllReduce", 0.1, 4)]))
     seen, rehearsed = [], []
     monkeypatch.setattr(chip_smoke, "check_launches",
